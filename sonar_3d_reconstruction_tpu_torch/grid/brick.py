@@ -16,6 +16,13 @@ scatter moves a whole brick.  A window of B frames applies at once:
      over the brick's value row;
   4. rows, touched bits, bounds and stats are written back.
 
+``dense_mode`` picks the records the window takes: ``"pallas"`` (the
+default) takes per-frame unique records; ``"pallas-raw"`` takes raw
+candidates (``frame_records(raw=True)``), which K1's raw form sums per
+(brick, frame, offset) slot into the same aggregates, so both modes give
+the same map.  In raw mode the per-frame unique-voxel stats come from the
+kernel and ``batch_n_lanes`` counts candidate lanes.
+
 A ``touched`` bitmask per brick keeps the reference's touched-voxel
 semantics: a never-updated voxel (p = 0.5, not reported) differs from an
 updated voxel whose log-odds is 0.0.
@@ -44,7 +51,10 @@ from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     empty_key_rows,
     plan_insert,
 )
-from sonar_3d_reconstruction_tpu_torch.kernels.bin_apply import bin_apply
+from sonar_3d_reconstruction_tpu_torch.kernels.bin_apply import (
+    bin_apply,
+    bin_apply_raw,
+)
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import CompactRecords
 from sonar_3d_reconstruction_tpu_torch.ops.logodds import probability_to_log_odds
 from sonar_3d_reconstruction_tpu_torch.ops.packing import (
@@ -60,6 +70,21 @@ from sonar_3d_reconstruction_tpu_torch.ops.records import FrameAux
 DEFAULT_BRICK_BITS = 2  # 4x4x4 = 64 voxels per brick
 
 _BRICK_BITS_BY_VOLUME = {8: 1, 64: 2, 512: 3}
+
+# window apply modes: unique records, or raw candidates summed by K1
+DENSE_MODES = ("pallas", "pallas-raw")
+
+
+def is_raw_mode(dense_mode: str) -> bool:
+    """Whether ``dense_mode`` takes raw candidates; raises ValueError on a
+    mode the port does not accept (the JAX package's tile-size suffixes
+    such as ``-tb16`` size TPU tiles and mean nothing here)."""
+    if dense_mode not in DENSE_MODES:
+        raise ValueError(
+            f"dense_mode {dense_mode!r} is not accepted; use one of "
+            f"{DENSE_MODES}"
+        )
+    return dense_mode == "pallas-raw"
 
 
 class BrickGridState(NamedTuple):
@@ -140,14 +165,18 @@ def apply_brick_records_compact(
     cfg: MapperConfig,
     box_min,                # (3,) brick-aligned box-origin voxel key
     box_bits: Tuple[int, int, int],
+    dense_mode: str = "pallas",
 ) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
     """Apply one window of B frames of box-key records to the brick map.
 
-    Returns (new state, per-frame stats of shape (B,)): ``num_occupied``
-    and ``num_free`` (unique records by type), ``num_candidates`` (valid
-    emissions), ``overflowed``, ``range_fail``, ``pack_overflow``, and the
-    window's ``batch_n_bricks`` / ``batch_n_lanes`` sizes.
+    ``recs`` are unique records, or raw candidates when ``dense_mode`` is
+    ``"pallas-raw"``.  Returns (new state, per-frame stats of shape (B,)):
+    ``num_occupied`` and ``num_free`` (unique voxels by type),
+    ``num_candidates`` (valid emissions), ``overflowed``, ``range_fail``,
+    ``pack_overflow``, and the window's ``batch_n_bricks`` /
+    ``batch_n_lanes`` (record lanes; candidate lanes in raw mode) sizes.
     """
+    raw = is_raw_mode(dense_mode)
     B, U = recs.key.shape
     bb = state.brick_bits
     o = 3 * bb
@@ -166,8 +195,10 @@ def apply_brick_records_compact(
         ((key >> o) << (o + f_bits)) | (frame << o) | (key & ((1 << o) - 1)),
         EMPTY32,
     )
-    # keys are unique per (voxel, frame); EMPTY32 lanes carry payload 0, so
-    # the unstable order among them does not matter
+    # unique records have one key per (voxel, frame), raw candidates may
+    # repeat it; either way the unstable order among equal keys does not
+    # matter: K1 sums raw records in integers, and EMPTY32 lanes carry
+    # payload 0
     s_flat, order = torch.sort(flat)
     s_pay = recs.payload.reshape(-1)[order]
     seg_valid = s_flat != EMPTY32
@@ -193,11 +224,9 @@ def apply_brick_records_compact(
     c_hi, c_lo, g_ok = pack_brick_keys(corner, bb)
     auxs = auxs._replace(range_fail=auxs.range_fail | (~g_ok).any())
 
-    rec_valid = recs.valid
     return _apply_window_tail(
         state, cfg, c_hi, c_lo, s_flat, s_pay, starts,
-        B=B, f_bits=f_bits, o=o, pack_overflow=recs.pack_fail.any(),
-        auxs=auxs, rec_valid=rec_valid, rec_occ=rec_valid & (recs.n_occ > 0),
+        B=B, f_bits=f_bits, o=o, raw=raw, recs=recs, auxs=auxs,
         n_lanes=n_lanes, n_bricks=n_bricks,
     )
 
@@ -207,11 +236,15 @@ def _apply_window_tail(
     cfg: MapperConfig,
     c_hi, c_lo, s_flat, s_pay, starts,
     *,
-    B, f_bits, o, pack_overflow, auxs, rec_valid, rec_occ, n_lanes, n_bricks,
+    B, f_bits, o, raw, recs, auxs, n_lanes, n_bricks,
 ) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
     """Table lookup/insert at the window's bricks, K1, commit and stats."""
     vol = state.brick_volume
     dtype, device = state.log_odds.dtype, state.log_odds.device
+    # raw candidates carry count 1 each and are summed unpacked: no packing
+    # width to overflow
+    pack_overflow = (torch.zeros((), dtype=torch.bool, device=device) if raw
+                     else recs.pack_fail.any())
 
     bucket, found, found_slot, fill = bucket_lookup(state.key_rows, c_hi, c_lo)
     plan = plan_insert(state.key_rows, c_hi, c_lo, ~found, bucket, fill)
@@ -242,10 +275,18 @@ def _apply_window_tail(
     rows_cur = state.log_odds[slots]
     touched_cur = state.touched[slots]
 
-    v, upd = bin_apply(
-        s_flat, s_pay, starts, rows_cur, B=B, vol=vol, f_bits=f_bits, o=o,
-        cfg=cfg,
-    )
+    kw = dict(B=B, vol=vol, f_bits=f_bits, o=o, cfg=cfg)
+    if raw:
+        # the records count candidates: the per-frame unique-voxel stats
+        # come from the kernel
+        v, upd, num_occupied, num_free = bin_apply_raw(
+            s_flat, s_pay, starts, rows_cur, **kw
+        )
+    else:
+        v, upd = bin_apply(s_flat, s_pay, starts, rows_cur, **kw)
+        rec_occ = recs.valid & (recs.n_occ > 0)
+        num_occupied = rec_occ.sum(dim=1)
+        num_free = (recs.valid & ~rec_occ).sum(dim=1)
     n_new = (upd & ~_unpack_touched(touched_cur, vol)).sum()
     new_state = BrickGridState(
         key_rows=key_rows,
@@ -259,8 +300,8 @@ def _apply_window_tail(
         poisoned=state.poisoned,
     )
     stats.update(
-        num_occupied=rec_occ.sum(dim=1),
-        num_free=(rec_valid & ~rec_occ).sum(dim=1),
+        num_occupied=num_occupied,
+        num_free=num_free,
         num_candidates=auxs.n_valid,
     )
     return new_state, stats

@@ -1,11 +1,16 @@
 """K1: fused record binning + per-frame chain evaluation of one window.
 
 ``bin_apply`` replaces ``sonar_3d_reconstruction_tpu.pallas.bin_kernel.
-pallas_bin_apply`` (non-stats form).  On CUDA tensors it launches the
+pallas_bin_apply`` for unique records (non-stats form); ``bin_apply_raw``
+replaces its ``stats_out=True`` form, which takes raw candidates, sums
+them per (brick, frame, offset) slot and also returns per-frame unique
+voxel counts.  On CUDA tensors each wrapper launches its form of the
 hand-written kernel ``csrc/bin_apply.cu`` (built at first use, bound with
-ctypes) and raises if that cannot be done; on CPU tensors it runs
-``bin_apply_reference``, the plain PyTorch version the kernel is held
-against.  ``launches`` counts kernel launches and nothing else.
+ctypes) and raises if that cannot be done; on CPU tensors it runs its
+plain PyTorch version (``bin_apply_reference`` /
+``bin_apply_raw_reference``), which the kernel is held against.
+``launches`` and ``raw_launches`` count kernel launches of each form and
+nothing else.
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ from sonar_3d_reconstruction_tpu_torch.ops.logodds import finalize_voxel_updates
 
 SOURCE = "bin_apply.cu"
 
-# kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset them)
 launches = 0
+raw_launches = 0
 
-_SMEM_LIMIT = 48 * 1024  # static shared-memory limit without opt-in
+_SMEM_LIMIT = 48 * 1024  # dynamic shared-memory limit without opt-in
 _MAX_THREADS = 1024
 
 
@@ -49,6 +55,45 @@ def _check(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o) -> None:
         raise ValueError(f"B={B} frames do not fit f_bits={f_bits}")
 
 
+def _dense_index(s_flat, starts, nb, B, vol, f_bits, o):
+    """Flat (brick, frame, offset) slot of every record lane in a
+    (NB*B*vol + 1,) buffer whose last entry is a dump for lanes outside
+    [starts[0], starts[NB]) and, like the kernel, frame fields >= B."""
+    lane = torch.arange(s_flat.shape[0], device=s_flat.device)
+    brick = torch.searchsorted(starts, lane, right=True) - 1
+    frame = (s_flat >> o) & ((1 << f_bits) - 1)
+    off = s_flat & ((1 << o) - 1)
+    keep = (lane >= starts[0]) & (lane < starts[nb]) & (frame < B)
+    dump = nb * B * vol
+    return torch.where(keep, brick * (B * vol) + frame * vol + off, dump), dump
+
+
+def _frame_chain(cnt, occ, rows_cur, cfg):
+    """B masked passes of ``finalize_voxel_updates`` (the JAX package's bfv
+    chain evaluation) over (NB, B, vol) int64 count and n_occ tables.
+    Returns (new rows, touched-this-window mask, per-frame unique occupied
+    (B,), per-frame unique free (B,))."""
+    nb, B, vol = cnt.shape
+    dtype, device = rows_cur.dtype, rows_cur.device
+    occ_l = torch.full((), cfg.log_odds_occupied, dtype=dtype, device=device)
+    free_l = torch.full((), cfg.log_odds_free, dtype=dtype, device=device)
+    v = rows_cur
+    upd = torch.zeros((nb, vol), dtype=torch.bool, device=device)
+    occ_u = torch.zeros(B, dtype=torch.int64, device=device)
+    free_u = torch.zeros(B, dtype=torch.int64, device=device)
+    for f in range(B):
+        c = cnt[:, f, :].to(dtype)
+        q = occ[:, f, :].to(dtype)
+        lo_sum = q * occ_l + (c - q) * free_l
+        hit = cnt[:, f, :] != 0
+        is_occ = occ[:, f, :] != 0
+        upd = upd | hit
+        occ_u[f] = is_occ.sum()
+        free_u[f] = (hit & ~is_occ).sum()
+        v = finalize_voxel_updates(v, lo_sum, c, q > 0, cfg)
+    return v, upd, occ_u, free_u
+
+
 def bin_apply_reference(
     s_flat: torch.Tensor,
     s_pay: torch.Tensor,
@@ -61,41 +106,53 @@ def bin_apply_reference(
     o: int,
     cfg: MapperConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: the same inputs and outputs.
+    """Plain PyTorch version of the unique-record kernel: the same inputs
+    and outputs.
 
     Brick of each record lane by ``searchsorted(starts)``, one scatter into
-    a (NB, B, vol) payload buffer, then B masked passes of
-    ``finalize_voxel_updates`` (the JAX package's bfv chain evaluation).
-    Returns (new rows (NB, vol), touched-this-window (NB, vol) bool).
+    a (NB, B, vol) payload buffer, then the frame chain.  Returns (new rows
+    (NB, vol), touched-this-window (NB, vol) bool).
     """
     _check(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o)
     nb = rows_cur.shape[0]
-    dtype, device = rows_cur.dtype, rows_cur.device
-    lane = torch.arange(s_flat.shape[0], device=device)
-    brick = torch.searchsorted(starts, lane, right=True) - 1
-    frame = (s_flat >> o) & ((1 << f_bits) - 1)
-    off = s_flat & ((1 << o) - 1)
-    # lanes outside [starts[0], starts[NB]) belong to no brick; like the
-    # kernel, a frame field >= B is dropped
-    keep = (lane >= starts[0]) & (lane < starts[nb]) & (frame < B)
-    dump = nb * B * vol
-    didx = torch.where(keep, brick * (B * vol) + frame * vol + off, dump)
-    dense = torch.zeros(dump + 1, dtype=torch.int64, device=device)
+    didx, dump = _dense_index(s_flat, starts, nb, B, vol, f_bits, o)
+    dense = torch.zeros(dump + 1, dtype=torch.int64, device=rows_cur.device)
     dense[didx] = s_pay
     dense = dense[:dump].reshape(nb, B, vol)
-
-    occ_l = torch.full((), cfg.log_odds_occupied, dtype=dtype, device=device)
-    free_l = torch.full((), cfg.log_odds_free, dtype=dtype, device=device)
-    v = rows_cur
-    upd = torch.zeros((nb, vol), dtype=torch.bool, device=device)
-    for f in range(B):
-        d = dense[:, f, :]
-        cnt = (d >> 16).to(dtype)
-        occ = (d & 0xFFFF).to(dtype)
-        lo_sum = occ * occ_l + (cnt - occ) * free_l
-        upd = upd | (d != 0)
-        v = finalize_voxel_updates(v, lo_sum, cnt, occ > 0, cfg)
+    v, upd, _, _ = _frame_chain(dense >> 16, dense & 0xFFFF, rows_cur, cfg)
     return v, upd
+
+
+def bin_apply_raw_reference(
+    s_flat: torch.Tensor,
+    s_pay: torch.Tensor,
+    starts: torch.Tensor,
+    rows_cur: torch.Tensor,
+    *,
+    B: int,
+    vol: int,
+    f_bits: int,
+    o: int,
+    cfg: MapperConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the raw-candidate kernel.
+
+    Records may repeat a (brick, frame, offset) slot: count and n_occ are
+    summed per slot with ``index_add_`` into two separate int64 tables
+    (never the packed payload, whose n_occ sum would carry into the count
+    field), then the frame chain runs.  Returns (new rows (NB, vol),
+    touched-this-window (NB, vol) bool, per-frame unique occupied voxels
+    (B,) int64, per-frame unique free voxels (B,) int64).
+    """
+    _check(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o)
+    nb = rows_cur.shape[0]
+    didx, dump = _dense_index(s_flat, starts, nb, B, vol, f_bits, o)
+
+    def summed(x):
+        out = torch.zeros(dump + 1, dtype=torch.int64, device=rows_cur.device)
+        return out.index_add_(0, didx, x)[:dump].reshape(nb, B, vol)
+
+    return _frame_chain(summed(s_pay >> 16), summed(s_pay & 0xFFFF), rows_cur, cfg)
 
 
 @functools.cache
@@ -103,12 +160,14 @@ def _library() -> Tuple[ctypes.CDLL, str]:
     path, log = build_shared_library(SOURCE)
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, real in (("bin_apply_f32", ctypes.c_float),
-                       ("bin_apply_f64", ctypes.c_double)):
+    for name, real, n_ptr in (("bin_apply_f32", ctypes.c_float, 6),
+                              ("bin_apply_f64", ctypes.c_double, 6),
+                              ("bin_apply_raw_f32", ctypes.c_float, 8),
+                              ("bin_apply_raw_f64", ctypes.c_double, 8)):
         fn = getattr(lib, name)
         fn.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [real, real, i32, real, real, real, real]
-            + [ptr]
+            [ptr] * n_ptr + [i32] * 5
+            + [real, real, i32, real, real, real, real] + [ptr]
         )
         fn.restype = i32
     return lib, log
@@ -117,6 +176,42 @@ def _library() -> Tuple[ctypes.CDLL, str]:
 def build() -> str:
     """Build (or find) the kernel library; returns the compiler output."""
     return _library()[1]
+
+
+def _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,
+                 smem_words: int):
+    """Device of the inputs, validated for the kernel; None for CPU."""
+    tensors = (s_flat, s_pay, starts, rows_cur)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return None
+    if device.type != "cuda":
+        raise ValueError(f"bin_apply runs on CPU or CUDA tensors, not {device}")
+    _check(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("bin_apply needs contiguous inputs")
+    if vol > _MAX_THREADS or smem_words * 4 > _SMEM_LIMIT:
+        raise ValueError(f"B={B}, vol={vol} exceed the kernel's block limits")
+    return device
+
+
+def _launch(name, device, tensors, nb, B, vol, f_bits, o, cfg) -> None:
+    """Launch entry point ``name`` of the library on the current stream
+    with the tensors' pointers, the shape and the chain constants."""
+    lib, _ = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(
+            *(t.data_ptr() for t in tensors), nb, B, vol, f_bits, o,
+            cfg.log_odds_occupied, cfg.log_odds_free,
+            int(cfg.adaptive_update), cfg.adaptive_threshold,
+            cfg.adaptive_max_ratio, cfg.log_odds_min, cfg.log_odds_max, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def bin_apply(
@@ -140,42 +235,65 @@ def bin_apply(
     value rows.  Returns (new rows, touched-this-window mask).
     """
     global launches
-    tensors = (s_flat, s_pay, starts, rows_cur)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {devices}")
-    device = devices.pop()
-    if device.type == "cpu":
+    device = _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,
+                          B * vol)
+    if device is None:
         return bin_apply_reference(
             s_flat, s_pay, starts, rows_cur, B=B, vol=vol, f_bits=f_bits, o=o,
             cfg=cfg,
         )
-    if device.type != "cuda":
-        raise ValueError(f"bin_apply runs on CPU or CUDA tensors, not {device}")
-    _check(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("bin_apply needs contiguous inputs")
-    if vol > _MAX_THREADS or B * vol * 4 > _SMEM_LIMIT:
-        raise ValueError(f"B={B}, vol={vol} exceed the kernel's block limits")
-
     nb = rows_cur.shape[0]
     v_out = torch.empty_like(rows_cur)
     upd = torch.empty(rows_cur.shape, dtype=torch.bool, device=device)
     if nb == 0:
         return v_out, upd
-    lib, _ = _library()
-    fn = lib.bin_apply_f32 if rows_cur.dtype == torch.float32 else lib.bin_apply_f64
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            s_flat.data_ptr(), s_pay.data_ptr(), starts.data_ptr(),
-            rows_cur.data_ptr(), v_out.data_ptr(), upd.data_ptr(),
-            nb, B, vol, f_bits, o,
-            cfg.log_odds_occupied, cfg.log_odds_free, int(cfg.adaptive_update),
-            cfg.adaptive_threshold, cfg.adaptive_max_ratio,
-            cfg.log_odds_min, cfg.log_odds_max, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bin_apply kernel launch failed: CUDA error {err}")
+    suffix = "f32" if rows_cur.dtype == torch.float32 else "f64"
+    _launch(f"bin_apply_{suffix}", device,
+            (s_flat, s_pay, starts, rows_cur, v_out, upd),
+            nb, B, vol, f_bits, o, cfg)
     launches += 1
     return v_out, upd
+
+
+def bin_apply_raw(
+    s_flat: torch.Tensor,
+    s_pay: torch.Tensor,
+    starts: torch.Tensor,
+    rows_cur: torch.Tensor,
+    *,
+    B: int,
+    vol: int,
+    f_bits: int,
+    o: int,
+    cfg: MapperConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``bin_apply`` over raw candidates, with per-frame unique counts.
+
+    Inputs as for ``bin_apply``, except that records may repeat a slot:
+    their counts and n_occ are summed per slot (each sum must stay below
+    2^32; it is exact in the chain below 2^24).  Returns (new rows,
+    touched-this-window mask, per-frame occupied voxels (B,) int64,
+    per-frame free voxels (B,) int64), the voxels with n_occ > 0 and those
+    with count != 0 and n_occ == 0, summed over the bricks.
+    """
+    global raw_launches
+    device = _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,
+                          2 * B * vol + 2 * B)
+    if device is None:
+        return bin_apply_raw_reference(
+            s_flat, s_pay, starts, rows_cur, B=B, vol=vol, f_bits=f_bits, o=o,
+            cfg=cfg,
+        )
+    nb = rows_cur.shape[0]
+    v_out = torch.empty_like(rows_cur)
+    upd = torch.empty(rows_cur.shape, dtype=torch.bool, device=device)
+    # the kernel adds its per-brick counts into these
+    counts = torch.zeros((2, B), dtype=torch.int64, device=device)
+    if nb == 0:
+        return v_out, upd, counts[0], counts[1]
+    suffix = "f32" if rows_cur.dtype == torch.float32 else "f64"
+    _launch(f"bin_apply_raw_{suffix}", device,
+            (s_flat, s_pay, starts, rows_cur, v_out, upd, counts[0], counts[1]),
+            nb, B, vol, f_bits, o, cfg)
+    raw_launches += 1
+    return v_out, upd, counts[0], counts[1]

@@ -39,7 +39,8 @@ class CompactRecords(NamedTuple):
 
     key: torch.Tensor        # (U,) int64 box key (EMPTY32 = unused lane)
     payload: torch.Tensor    # (U,) int64 count << 16 | n_occ (0 on unused)
-    n_unique: torch.Tensor   # () int64 valid records (a prefix of the lanes)
+    n_unique: torch.Tensor   # () int64 valid records (a prefix of the
+                             # lanes, except for raw records)
     pack_fail: torch.Tensor  # () bool: some voxel got 2^16+ candidates
 
     @property

@@ -22,7 +22,7 @@ from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
     CompactRecords,
     dedup_frame_compact,
 )
-from sonar_3d_reconstruction_tpu_torch.ops.packing import pack_box_keys
+from sonar_3d_reconstruction_tpu_torch.ops.packing import EMPTY32, pack_box_keys
 
 
 class FrameAux(NamedTuple):
@@ -43,11 +43,18 @@ def frame_records(
     box_bits: Tuple[int, int, int],
     brick_bits: int,
     dtype: torch.dtype = torch.float32,
+    raw: bool = False,
 ) -> Tuple[CompactRecords, FrameAux]:
     """One ping -> (CompactRecords, FrameAux) with box-relative keys.
 
     A candidate outside the box reports through ``range_fail`` (the host
     gate ``compute_window_boxes`` makes that impossible for its boxes).
+
+    ``raw=True`` skips the per-frame dedup: every valid candidate is its
+    own record with payload ``1 << 16 | occ``, in the lane the candidate
+    lattice gave it (valid records are NOT a prefix), and ``n_unique`` is
+    the valid count.  Only the raw window apply (``bin_apply_raw``, which
+    sums records per slot) may consume them.
     """
     cand = backproject_ping(image, T_sonar_to_world, tables, cfg, dtype=dtype)
     device = image.device
@@ -59,7 +66,16 @@ def frame_records(
     valid = cand["valid"]
     range_fail = (valid & ~in_range).any()
     valid = valid & in_range
-    rec = dedup_frame_compact(bkey, cand["is_occupied"], valid)
+    if raw:
+        occ = cand["is_occupied"].to(torch.int64)
+        rec = CompactRecords(
+            key=torch.where(valid, bkey, EMPTY32),
+            payload=torch.where(valid, (1 << 16) | occ, 0),
+            n_unique=valid.sum(),
+            pack_fail=torch.zeros((), dtype=torch.bool, device=device),
+        )
+    else:
+        rec = dedup_frame_compact(bkey, cand["is_occupied"], valid)
 
     # bounds reduce over int keys: k -> (k + 0.5) * res is exact and
     # monotone, so min/max commute with it

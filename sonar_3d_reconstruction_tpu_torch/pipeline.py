@@ -8,6 +8,11 @@ each window syncs a few sizes (the largest frame's unique count, the
 window's lanes and bricks, its failure flags) to size its tensors from the
 actual counts.
 
+``dense_mode="pallas"`` (the default) dedups each ping's candidates into
+unique records; ``"pallas-raw"`` skips the per-ping dedup and hands every
+candidate to K1's raw form, which sums them per slot: the same map and
+per-ping unique stats, from more record lanes.
+
 The map grows on demand: a window that would overflow a table bucket is
 rejected whole, the table doubles (``rehash_bricks``) and the sequence
 replays from that window.  Keys outside the packable range and voxels with
@@ -28,6 +33,7 @@ from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     BrickGridState,
     apply_brick_records_compact,
     init_brick_grid,
+    is_raw_mode,
     rehash_bricks,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
@@ -66,19 +72,27 @@ def _window_records(
     dtype: torch.dtype,
     box_bits: Tuple[int, int, int],
     brick_bits: int,
+    dense_mode: str = "pallas",
 ) -> Tuple[CompactRecords, FrameAux]:
-    """Records of a window's frames, stacked along a leading frame axis and
-    cut to the widest frame's unique count (one sync)."""
+    """Records of a window's frames, stacked along a leading frame axis.
+
+    Unique records are a prefix of their lanes and are cut to the widest
+    frame's unique count (one sync).  Raw candidates sit wherever the
+    candidate lattice put them, so they keep their full width: a cut would
+    drop valid candidates."""
+    raw = is_raw_mode(dense_mode)
     box_min_t = torch.as_tensor(box_min, device=images.device)
     outs = [
         frame_records(
             images[i], transforms[i], tables, cfg, box_min_t, box_bits,
-            brick_bits, dtype=dtype,
+            brick_bits, dtype=dtype, raw=raw,
         )
         for i in frames
     ]
     recs = CompactRecords(*(torch.stack(x) for x in zip(*(r for r, _ in outs))))
     auxs = FrameAux(*(torch.stack(x) for x in zip(*(a for _, a in outs))))
+    if raw:
+        return recs, auxs
     width = max(1, int(recs.n_unique.max()))
     return recs._replace(
         key=recs.key[:, :width], payload=recs.payload[:, :width]
@@ -96,6 +110,7 @@ def scan_pings_brick(
     dtype: torch.dtype,
     window: int,
     boxes,
+    dense_mode: str = "pallas",
 ) -> Tuple[BrickGridState, Dict[str, np.ndarray]]:
     """Apply pings [start, P) window by window; returns (state, per-ping
     stats (P,) on the host).
@@ -116,10 +131,11 @@ def scan_pings_brick(
         recs, auxs = _window_records(
             images, transforms, range(w0, w1), box_mins[w0 // window],
             tables=tables, cfg=cfg, dtype=dtype, box_bits=box_bits,
-            brick_bits=state.brick_bits,
+            brick_bits=state.brick_bits, dense_mode=dense_mode,
         )
         state, win = apply_brick_records_compact(
-            state, recs, auxs, cfg, box_mins[w0 // window], box_bits
+            state, recs, auxs, cfg, box_mins[w0 // window], box_bits,
+            dense_mode=dense_mode,
         )
         for k, v in win.items():
             stats[k][w0:w1] = v.cpu().numpy()
@@ -140,6 +156,7 @@ def map_ping_sequence(
     state: Optional[BrickGridState] = None,
     dtype: torch.dtype = torch.float32,
     window: int = 1,
+    dense_mode: str = "pallas",
 ) -> Tuple[BrickGridState, Dict[str, np.ndarray]]:
     """Map a whole recorded ping sequence on ``device``.
 
@@ -148,7 +165,9 @@ def map_ping_sequence(
     ``state`` resumes an existing map (default: a fresh one of
     ``DEFAULT_BRICK_CAPACITY`` bricks on ``device``).  Only the brick
     backend over compact box keys is ported; a survey whose per-window
-    extent needs wider keys raises ValueError.
+    extent needs wider keys raises ValueError.  ``dense_mode`` is
+    ``"pallas"`` (per-ping dedup, unique records) or ``"pallas-raw"`` (raw
+    candidates summed by the kernel); both give the same map.
 
     Returns (final state, per-ping stats: ``num_occupied`` / ``num_free``
     unique voxels by type, ``num_candidates`` valid emissions,
@@ -157,6 +176,7 @@ def map_ping_sequence(
     cfg = cfg or MapperConfig()
     if backend != "brick":
         raise ValueError(f"backend {backend!r} is not ported; use 'brick'")
+    is_raw_mode(dense_mode)
     # canonical form ("cuda" -> "cuda:0"), as tensors report their device
     device = torch.empty(0, device=device).device
     if state is None:
@@ -191,7 +211,7 @@ def map_ping_sequence(
     for _ in range(MAX_GROW_RETRIES):
         new_state, stats = scan_pings_brick(
             state, images_dev, T_dev, start, tables=tables, cfg=cfg,
-            dtype=dtype, window=window, boxes=boxes,
+            dtype=dtype, window=window, boxes=boxes, dense_mode=dense_mode,
         )
         over = stats["overflowed"]
         applied_hi = int(np.argmax(over)) if over.any() else P

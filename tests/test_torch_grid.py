@@ -96,10 +96,10 @@ def test_bucket_ops_match(capacity, n_old, n_new):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_window_inputs(cfg, dtype, n_first=4, window=4, seed=41):
+def _jax_window_inputs(cfg, dtype, n_first=4, window=4, seed=41, raw=False):
     """A non-empty JAX map after n_first pings, and the box-key records of
-    the next window, as the JAX package computes them (cached: the tests
-    below share them)."""
+    the next window (raw candidates if ``raw``), as the JAX package
+    computes them (cached: the tests below share them)."""
     images, positions, quats = make_seq(cfg, n_first + window, seed=seed)
     tables = j_resolve_capped_tables(images, cfg, 100, 64)
     T = j_batched_sonar_to_world(positions, quats, cfg)
@@ -116,7 +116,7 @@ def _jax_window_inputs(cfg, dtype, n_first=4, window=4, seed=41):
         j_records.frame_records(
             jnp.asarray(images[i]), jnp.asarray(T[i], dtype), tables, cfg,
             unique_budget=4096, dtype=dtype, brick_bits=2,
-            box_min=jnp.asarray(box_min), box_bits=boxes[1],
+            box_min=jnp.asarray(box_min), box_bits=boxes[1], raw=raw,
         )
         for i in range(n_first, n_first + window)
     ]
@@ -162,6 +162,46 @@ def test_window_apply_matches_pallas_tb16(small_cfg, t_dtype, j_dtype):
     assert_brick_states_match(
         brick.brick_state_to_numpy(start), jax_brick_state_to_numpy(st), t_dtype
     )
+
+
+@pytest.mark.parametrize("t_dtype,j_dtype", DTYPES)
+def test_window_apply_matches_pallas_raw(small_cfg, t_dtype, j_dtype):
+    """One window of raw candidates applied to a map that already holds 4
+    pings: the JAX apply in ``dense_mode="pallas-raw"`` (the Pallas
+    kernel's stats_out form), with the per-frame unique stats from K1."""
+    cfg = small_cfg
+    st, recs, auxs, box_min, box_bits = _jax_window_inputs(cfg, j_dtype, raw=True)
+    want_st, want = j_brick.apply_brick_records_compact(
+        st, recs, auxs, cfg, jnp.asarray(box_min), box_bits,
+        brick_budget=2048, dense_mode="pallas-raw",
+    )
+    start = brick.brick_state_from_numpy(jax_brick_state_to_numpy(st), "cpu")
+    got_st, got = brick.apply_brick_records_compact(
+        start, *_port_records(recs, auxs), port_cfg(cfg), box_min, box_bits,
+        dense_mode="pallas-raw",
+    )
+    assert_brick_states_match(
+        brick.brick_state_to_numpy(got_st), jax_brick_state_to_numpy(want_st),
+        t_dtype,
+    )
+    for k in ("num_occupied", "num_free", "num_candidates", "overflowed",
+              "range_fail", "pack_overflow", "batch_n_bricks", "batch_n_lanes"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), k)
+    # raw lanes count candidates, and the unique stats are far fewer
+    assert (got["batch_n_lanes"].numpy() == int(recs.valid.sum())).all()
+    uniques = (got["num_occupied"] + got["num_free"]).numpy()
+    assert (uniques < np.asarray(auxs.n_valid)).all()
+
+
+@pytest.mark.parametrize("mode", ["bfv", "pallas-tb16", "pallas-raw-tb16", "raw"])
+def test_window_apply_rejects_other_dense_modes(small_cfg, mode):
+    st, recs, auxs, box_min, box_bits = _jax_window_inputs(small_cfg, jnp.float64)
+    start = brick.brick_state_from_numpy(jax_brick_state_to_numpy(st), "cpu")
+    with pytest.raises(ValueError, match="pallas-raw"):
+        brick.apply_brick_records_compact(
+            start, *_port_records(recs, auxs), port_cfg(small_cfg), box_min,
+            box_bits, dense_mode=mode,
+        )
 
 
 def test_failed_window_leaves_the_map_untouched(small_cfg):

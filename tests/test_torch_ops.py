@@ -310,3 +310,38 @@ def test_frame_records_matches(small_cfg, t_dtype, j_dtype):
             np.testing.assert_array_equal(
                 getattr(aux, k).numpy(), np.asarray(getattr(jaux, k)), k
             )
+
+
+@pytest.mark.parametrize("t_dtype,j_dtype", DTYPES)
+def test_raw_frame_records_match(small_cfg, t_dtype, j_dtype):
+    """Raw candidate records (no dedup) lane for lane; the valid lanes are
+    not a prefix, so nothing downstream may cut them to n_unique."""
+    cfg = small_cfg
+    images = np.stack([synthetic_ping(100, 64, seed=35)])
+    positions, quats = circular_trajectory(1, radius=0.8)
+    T = j_batched_sonar_to_world(positions, quats, cfg)
+    box_min, box_bits = j_packing.compute_window_boxes(
+        T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, 1, 2, 1
+    )
+    box_min = box_min[0]
+    jrec, jaux = j_records.frame_records(
+        jnp.asarray(images[0]), jnp.asarray(T[0], j_dtype),
+        j_bp.build_fan_tables(cfg, 100, 64), cfg, unique_budget=4096,
+        dtype=j_dtype, brick_bits=2, box_min=jnp.asarray(box_min),
+        box_bits=box_bits, raw=True,
+    )
+    rec, aux = frame_records(
+        torch.as_tensor(images[0]), torch.as_tensor(T[0]).to(t_dtype),
+        bp.build_fan_tables(port_cfg(cfg), 100, 64), port_cfg(cfg),
+        torch.as_tensor(box_min), box_bits, 2, dtype=t_dtype, raw=True,
+    )
+    np.testing.assert_array_equal(rec.key.numpy(), np.asarray(jrec.key))
+    np.testing.assert_array_equal(rec.payload.numpy(), np.asarray(jrec.payload))
+    assert int(rec.n_unique) == int(jrec.n_unique) == int(aux.n_valid) > 0
+    assert not bool(rec.pack_fail) and not bool(jrec.pack_fail)
+    valid = rec.valid.numpy()
+    assert np.flatnonzero(valid).max() >= int(rec.n_unique)
+    for k in ("cmin", "cmax", "range_fail", "n_valid"):
+        np.testing.assert_array_equal(
+            getattr(aux, k).numpy(), np.asarray(getattr(jaux, k)), k
+        )
