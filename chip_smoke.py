@@ -13,27 +13,39 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    ``pipeline.map_ping_sequence(backend="brick", window=16)`` in float32,
    once cold and once warm; the warm run's K1 launch count must be
    non-zero, no window may overflow, every ping must emit, and the map
-   must hold occupied voxels with finite probabilities.
+   must hold occupied voxels with finite probabilities.  The cold run
+   keeps the inputs of its widest window's K1 call (the script wraps
+   ``grid.brick.bin_apply``) for phase 3, on the host until then; the warm
+   run maps the same windows, and its wall and peak memory carry no such
+   copies.
 2b. raw path, full size: the same survey with ``dense_mode="pallas-raw"``
    (no per-ping dedup; K1's raw form sums the candidates), cold and warm;
    its raw K1 launch count must be non-zero, and its final map state and
-   per-ping stats must equal phase 2's exactly.
+   per-ping stats must equal phase 2's exactly.  Its widest window's
+   ``bin_apply_raw`` inputs are kept likewise.
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the shapes its path gives it and on edge cases; they must agree
    exactly.  K1 and K1-raw in float32 and float64 on random windows
    (K1-raw with duplicate records: empty window, one brick, a brick whose
-   range spans many blocks, large counts) and at their path's largest
-   window.  K2 (``lookup_accumulate``), driven on its own: a chain of 16
-   dependent calls (the first inserts, the rest find and accumulate) at
-   two sizes, and a duplicate-key batch against the host-side sequential
-   loop.  Kernel and plain version are timed with CUDA events.
+   range spans many blocks, large counts; both: NB not a multiple of the
+   tile's TB bricks, NB < TB, a hot brick inside a tile of light ones), at
+   their path's largest window shape, and on the real widest window
+   captured in phase 2 / 2b.  K2 (``lookup_accumulate``), driven on its
+   own: a chain of 16 dependent calls (the first inserts, the rest find
+   and accumulate) at two sizes, and a duplicate-key batch against the
+   host-side sequential loop.  K1's time is its device time per launch
+   (torch.profiler); K2's is per wrapper call in the chain, and its
+   kernel's device time beside it; plain versions are timed with CUDA
+   events.
 4. cross-check: a small survey mapped on the GPU (kernels) and on the CPU
    (plain versions), in both dense modes, must give equal per-ping stats,
    the same occupied voxels, and probabilities within 1e-5.
 
-The line before the last is a JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-result when no CUDA device is visible.
+The line before the last is a JSON object describing each kernel, with
+the bytes each call must move and its bound at the card's published rates
+(HBM_BYTES_PER_S, FP32_OPS_PER_S); the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
+no CUDA device is visible.
 """
 
 import json
@@ -54,21 +66,37 @@ K2_CHAIN = 16         # dependent calls per K2 run, as scripts/profile_pallas.py
 # K2 (records, table slots): scripts/profile_pallas.py's own size, and one
 # bench window of unique voxels (16 x 55,077) into 2^22 slots
 K2_SIZES = [(131072, 1 << 19), (16 * 55077, 1 << 22)]
+# H100 SXM published peaks (NVIDIA's data sheet): memory and float32
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# arithmetic of one frame-chain step of K1 (lo_sum 4, avg 1, the adaptive
+# sigmoid, scale and product 6, the sum 1), counted where a voxel-frame
+# holds a record
+K1_OPS_PER_STEP = 12
 
 
 def _synthetic_window(rng, nb, n_records, B, vol, o, f_bits, dup=False,
-                      max_count=60):
+                      max_count=60, hot=None):
     """Sorted (brick, frame, offset) records, unique per slot unless
-    ``dup``, with their brick range starts, as numpy arrays."""
+    ``dup``, with their brick range starts, as numpy arrays.  ``hot``
+    names a brick that draws about half of the records."""
     import numpy as np
 
-    combos = np.sort(rng.choice(nb * B * vol, size=n_records, replace=dup))
+    if hot is None:
+        combos = np.sort(rng.choice(nb * B * vol, size=n_records, replace=dup))
+    else:
+        w = np.ones(nb)
+        w[hot] = nb
+        brick = rng.choice(nb, size=n_records, p=w / w.sum())
+        combos = brick * B * vol + rng.integers(0, B * vol, size=n_records)
+        combos = np.sort(combos if dup else np.unique(combos))
     brick = combos // (B * vol)
     frame = (combos // vol) % B
     off = combos % vol
     key = (brick << (o + f_bits)) | (frame << o) | off
-    cnt = rng.integers(1, max_count, size=n_records)
-    occ = np.minimum(rng.integers(0, 40, size=n_records), cnt)
+    cnt = rng.integers(1, max_count, size=key.size)
+    occ = np.minimum(rng.integers(0, 40, size=key.size), cnt)
     starts = np.searchsorted(brick, np.arange(nb + 1))
     rows = rng.normal(scale=4.0, size=(nb, vol))
     return key, (cnt << 16) | occ, starts, rows
@@ -87,6 +115,52 @@ def _time_ms(fn, reps=20):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(fn, kernel_name, reps=20, flush=None):
+    """Device time per launch of the kernels named ``kernel_name`` while
+    ``fn`` runs ``reps`` times, from torch.profiler, with ``flush`` (a
+    tensor larger than L2) rewritten before each call when given; None
+    when the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.add_(1)
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel_name in e.key:
+            total += getattr(e, "device_time_total", None) or e.cuda_time_total
+            count += e.count
+    return total / count / 1e3 if count else None
+
+
+def _kernel_ms(fn, kernel_name):
+    """``_device_ms``, or the CUDA-event time per call of ``fn`` (host
+    overhead included) when the profiler sees no launch."""
+    ms = _device_ms(fn, kernel_name)
+    if ms is None:
+        print(f"  (the profiler saw no {kernel_name}: CUDA-event time per "
+              "call instead)", flush=True)
+        ms = _time_ms(fn)
+    return ms
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, ops):
+    """(least ms, what bounds it) at the card's published rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _reset_counts():
@@ -112,7 +186,7 @@ def phase_build():
         logs = list(pool.map(lambda m: m.build(),
                              (bin_apply, lookup_accumulate)))
     ptxas = [ln.strip() for log in logs for ln in log.splitlines()
-             if "ptxas info" in ln]
+             if "ptxas info" in ln or "spill" in ln]
     print(f"phase 1 build: bin_apply and lookup_accumulate built in "
           f"{time.perf_counter() - t0:.1f} s"
           + "".join(f"\n  {ln}" for ln in ptxas), flush=True)
@@ -124,15 +198,30 @@ def phase_build():
     return dev
 
 
+def _keep_widest(widest, fn):
+    """``fn`` (a K1 wrapper) that also keeps, in ``widest``, copies of the
+    inputs of its call with the most record lanes."""
+
+    def wrapped(s_flat, s_pay, starts, rows_cur, **kw):
+        if s_flat.shape[0] > widest.get("L", -1):
+            widest.update(L=s_flat.shape[0], args=tuple(
+                t.clone() for t in (s_flat, s_pay, starts, rows_cur)))
+        return fn(s_flat, s_pay, starts, rows_cur, **kw)
+
+    return wrapped
+
+
 def phase_main_path(dev, dense_mode):
     """Map the bench survey twice in ``dense_mode``; returns (the warm
-    run's K1 launches of that mode, its largest window's shape, the final
+    run's K1 launches of that mode, its largest window's shape, the inputs
+    of the widest window's K1 call (kept in the cold run), the final
     state, the per-ping stats)."""
     import numpy as np
     import torch
 
     from bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.grid import brick
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
         extract_occupied_brick,
     )
@@ -154,7 +243,16 @@ def phase_main_path(dev, dense_mode):
         torch.cuda.synchronize()
         return st, stats, time.perf_counter() - t0
 
-    _, _, cold_s = run()
+    name = "bin_apply_raw" if raw else "bin_apply"
+    kept = {}
+    kernel = getattr(brick, name)
+    setattr(brick, name, _keep_widest(kept, kernel))
+    try:
+        _, _, cold_s = run()
+    finally:
+        setattr(brick, name, kernel)
+    # on the host until phase 3, out of the warm run's peak memory
+    kept["args"] = tuple(t.cpu() for t in kept["args"])
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
     st, stats, wall = run()
@@ -163,7 +261,6 @@ def phase_main_path(dev, dense_mode):
         launches, other = other, launches
     peak = torch.cuda.max_memory_allocated(dev)
 
-    name = "bin_apply_raw" if raw else "bin_apply"
     if launches == 0:
         raise AssertionError(f"the {dense_mode} path never launched {name}")
     if other != 0:
@@ -204,7 +301,10 @@ def phase_main_path(dev, dense_mode):
         f"{int(stats['batch_n_lanes'][widest])}",
         flush=True,
     )
-    return launches, shape, st, stats
+    if kept.get("L") != int(stats["batch_n_lanes"].max()):
+        raise AssertionError("the cold run's widest K1 call was not the "
+                             "warm run's widest window")
+    return launches, shape, kept["args"], st, stats
 
 
 def check_raw_equals_dedup(dedup, raw):
@@ -229,9 +329,10 @@ def check_raw_equals_dedup(dedup, raw):
     )
 
 
-def _k1_form(dev, shape, raw):
-    """One K1 form against its plain version on random windows and at the
-    path's largest window; returns (max |diff|, kernel ms, plain ms)."""
+def _k1_form(dev, shape, real, raw):
+    """One K1 form against its plain version on random windows, at the
+    path's largest window shape and on the path's real widest window
+    ``real``; returns a dict of the kernel's JSON fields."""
     import numpy as np
     import torch
 
@@ -245,58 +346,87 @@ def _k1_form(dev, shape, raw):
     rng = np.random.default_rng(1 if raw else 0)
     B = shape["B"]
     f_bits = max(1, (B - 1).bit_length())
-    # (NB, records, largest count): random, empty window, one brick, a
-    # brick whose range spans many blocks, many empty bricks, large counts,
-    # and the path's shape
+    tb = k1.tile_bricks(raw, B, vol)
+    # (NB, records, largest count, hot brick): random, empty window, one
+    # brick, a brick whose range spans many blocks, many empty bricks,
+    # large counts, NB not a multiple of TB, NB < TB, a hot brick inside a
+    # tile of light ones, and the path's shape
     if raw:
-        cases = [(64, 30000, 60), (16, 0, 60), (1, 700, 60),
-                 (1, 50000, 60), (500, 40, 60), (4, 3000, 0xFFFF),
-                 (shape["n_bricks"], shape["n_lanes"], 2)]
+        cases = [(64, 30000, 60, None), (16, 0, 60, None), (1, 700, 60, None),
+                 (1, 50000, 60, None), (500, 40, 60, None),
+                 (4, 3000, 0xFFFF, None)]
     else:
-        cases = [(64, 3000, 60), (16, 0, 60), (1, 700, 60),
-                 (3, 3 * B * vol, 60), (500, 40, 60),
-                 (shape["n_bricks"], shape["n_lanes"], 60)]
+        cases = [(64, 3000, 60, None), (16, 0, 60, None), (1, 700, 60, None),
+                 (3, 3 * B * vol, 60, None), (500, 40, 60, None)]
+    cases += [(5 * tb + 1, 4000, 60, None), (max(1, tb - 1), 500, 60, None),
+              (4 * tb + 3, 20000 if raw else 8000, 60, 2 * tb + 1),
+              (shape["n_bricks"], shape["n_lanes"], 2 if raw else 60, None)]
+    kw = dict(B=B, vol=vol, f_bits=f_bits, o=o, cfg=cfg)
+    windows = []
+    for nb, n, max_count, hot in cases:
+        key, pay, starts, rows = _synthetic_window(
+            rng, nb, n, B, vol, o, f_bits, dup=raw, max_count=max_count,
+            hot=hot,
+        )
+        windows.append(tuple(torch.as_tensor(x, device=dev)
+                             for x in (key, pay, starts))
+                       + (torch.as_tensor(rows, device=dev),))
+    windows.append(tuple(t.to(dev) for t in real))
     max_err = 0.0
-    timed = None
     for dtype in (torch.float32, torch.float64):
-        for nb, n, max_count in cases:
-            key, pay, starts, rows = _synthetic_window(
-                rng, nb, n, B, vol, o, f_bits, dup=raw, max_count=max_count
-            )
-            args = [
-                torch.as_tensor(key, device=dev),
-                torch.as_tensor(pay, device=dev),
-                torch.as_tensor(starts, device=dev),
-                torch.as_tensor(rows, device=dev).to(dtype),
-            ]
-            kw = dict(B=B, vol=vol, f_bits=f_bits, o=o, cfg=cfg)
+        for w, (s_flat, s_pay, starts, rows) in enumerate(windows):
+            args = (s_flat, s_pay, starts, rows.to(dtype))
             got = kernel(*args, **kw)
             want = plain(*args, **kw)
             torch.cuda.synchronize()
             err = float((got[0].double() - want[0].double()).abs().max())
             same = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
             if err > KERNEL_TOL or not same:
+                label = "the real widest window" if w == len(cases) else (
+                    f"NB={rows.shape[0]}, L={s_flat.shape[0]}")
                 raise AssertionError(
-                    f"{kernel.__name__} != plain ({dtype}, NB={nb}, L={n}): "
-                    f"max |diff| {err}, touched and counts equal {same}"
+                    f"{kernel.__name__} != plain ({dtype}, {label}): max "
+                    f"|diff| {err}, touched and counts equal {same}"
                 )
             max_err = max(max_err, err)
-            if dtype == torch.float32 and (nb, n, max_count) == cases[-1]:
-                timed = (
-                    _time_ms(lambda: kernel(*args, **kw)),
-                    _time_ms(lambda: plain(*args, **kw)),
-                )
-    ms, plain_ms = timed
+
+    def f32(w):
+        return w[:3] + (w[3].float(),)
+
+    synthetic, real = f32(windows[-2]), f32(windows[-1])
+    ms = _kernel_ms(lambda: kernel(*real, **kw), "bin_apply_kernel")
+    synthetic_ms = _kernel_ms(lambda: kernel(*synthetic, **kw),
+                              "bin_apply_kernel")
+    plain_ms = _time_ms(lambda: plain(*real, **kw))
+    # what the real window's call must move, and the chain's arithmetic
+    # where a voxel-frame holds a record
+    s_flat, s_pay, starts, rows = real
+    out = kernel(*real, **kw)
+    nbytes = _nbytes(*real, *out)
+    lane = torch.arange(s_flat.shape[0], device=dev)
+    brick_of = torch.searchsorted(starts, lane, right=True) - 1
+    steps = torch.unique(
+        (brick_of * B + ((s_flat >> o) & ((1 << f_bits) - 1))) * vol
+        + (s_flat & (vol - 1))
+    ).numel()
+    bound_ms, bound_by = _bound(nbytes, K1_OPS_PER_STEP * steps)
     print(
         f"phase 3 kernels: {kernel.__name__} == plain in float32 and float64 "
-        f"over {len(cases)} windows each"
+        f"over {len(windows)} windows each"
         f"{' with duplicate records' if raw else ''} (max |diff| {max_err}, "
-        f"tolerance {KERNEL_TOL}); at the path's largest window (NB="
-        f"{shape['n_bricks']}, L={shape['n_lanes']}, B={B}, float32): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+        f"tolerance {KERNEL_TOL}), the real widest window included; TB={tb} "
+        f"bricks per block; float32 device time per launch: real widest "
+        f"window (NB={rows.shape[0]}, L={s_flat.shape[0]}) {ms:.4f} ms "
+        f"(plain {plain_ms:.4f} ms), synthetic largest window (NB="
+        f"{shape['n_bricks']}, L={shape['n_lanes']}, B={B}) "
+        f"{synthetic_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} bytes), "
+        f"{bound_ms / ms:.1%} of it",
         flush=True,
     )
-    return max_err, ms, plain_ms
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                share_of_bound=bound_ms / ms, synthetic_ms=synthetic_ms,
+                tile_bricks=tb)
 
 
 def _distinct_keys(rng, u):
@@ -313,9 +443,8 @@ def _distinct_keys(rng, u):
 def phase_k2(dev):
     """Drive K2 on its own (it has no product path, as in the JAX package):
     chains of dependent calls at the profile script's size and at a
-    hash-backend window's size, then a duplicate-key batch.  Returns
-    (launches of the chain runs, max |diff|, kernel ms, plain ms) at the
-    larger size."""
+    hash-backend window's size, then a duplicate-key batch.  Returns a
+    dict of the kernel's JSON fields at the larger size."""
     import numpy as np
     import torch
 
@@ -359,11 +488,22 @@ def phase_k2(dev):
         plain_ms = _time_ms(
             lambda: chain(k2.lookup_accumulate_reference), reps=3
         ) / K2_CHAIN
-        timed = (ms, plain_ms)
+        kernel_ms = _kernel_ms(
+            lambda: k2.lookup_accumulate(khi, klo, upd, *got),
+            "lookup_accumulate_kernel",
+        )
+        # one call reads its records and both tables and writes the tables
+        nbytes = _nbytes(khi, klo, upd, rows0, vals0, *got)
+        bound_ms, bound_by = _bound(nbytes, 0)
+        timed = dict(ms=ms, plain_ms=plain_ms, kernel_ms=kernel_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     share_of_bound=bound_ms / ms)
         fill = (got[0][:, :128] != 0xFFFFFFFF).sum(dim=1)
         lines.append(
             f"U={u} into {cap} slots (fullest bucket {int(fill.max())} of "
-            f"128): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call"
+            f"128): wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms per call; bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes)"
         )
 
     # repeated keys in one call: a later record finds the earlier one's slot
@@ -388,7 +528,7 @@ def phase_k2(dev):
         "sequential loop",
         flush=True,
     )
-    return launches, max_err, *timed
+    return dict(timed, max_abs_err=max_err, chain_launches=launches)
 
 
 def phase_cross_check(dev):
@@ -458,36 +598,37 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     dev = phase_build()
-    k1_launches, k1_shape, *dedup = phase_main_path(dev, "pallas")
-    raw_launches, raw_shape, *raw = phase_main_path(dev, "pallas-raw")
+    k1_launches, k1_shape, k1_real, *dedup = phase_main_path(dev, "pallas")
+    raw_launches, raw_shape, raw_real, *raw = phase_main_path(
+        dev, "pallas-raw")
     check_raw_equals_dedup(dedup, raw)
     del dedup, raw
-    k1 = _k1_form(dev, k1_shape, raw=False)
-    k1_raw = _k1_form(dev, raw_shape, raw=True)
-    k2_launches, *k2 = phase_k2(dev)
+    k1 = _k1_form(dev, k1_shape, k1_real, raw=False)
+    k1_raw = _k1_form(dev, raw_shape, raw_real, raw=True)
+    del k1_real, raw_real
+    k2 = phase_k2(dev)
     phase_cross_check(dev)
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
+    # launches: the warm main-path run's (K2 has no product path; the
+    # launches of its chains are listed apart)
     rows = [
         ("bin_apply", bin_src, bin_tpu, k1_launches, k1),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches, k1_raw),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",
-         "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51",
-         k2_launches, k2),
+         "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, k2),
     ]
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    } for name, source, replaces, launches, (err, ms, plain_ms) in rows]}),
-        flush=True)
+    print(json.dumps({"kernels": [dict(
+        name=name,
+        route="cuda",
+        source=source,
+        replaces=replaces,
+        launches=launches,
+        library_ms=None,  # no single PyTorch call computes the function
+        **fields,
+    ) for name, source, replaces, launches, fields in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

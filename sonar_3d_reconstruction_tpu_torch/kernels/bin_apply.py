@@ -10,7 +10,8 @@ ctypes) and raises if that cannot be done; on CPU tensors it runs its
 plain PyTorch version (``bin_apply_reference`` /
 ``bin_apply_raw_reference``), which the kernel is held against.
 ``launches`` and ``raw_launches`` count kernel launches of each form and
-nothing else.
+nothing else.  The kernel gives each block a tile of consecutive bricks
+(``tile_bricks``); its design and measured bounds are in the source.
 """
 
 from __future__ import annotations
@@ -31,8 +32,29 @@ SOURCE = "bin_apply.cu"
 launches = 0
 raw_launches = 0
 
-_SMEM_LIMIT = 48 * 1024  # dynamic shared-memory limit without opt-in
-_MAX_THREADS = 1024
+# threads a block aims at: a tile is TILE_THREADS // vol consecutive bricks
+TILE_THREADS = 128
+_MAX_THREADS = 512         # the kernel's __launch_bounds__
+_SMEM_DEFAULT = 48 * 1024  # dynamic shared memory without opt-in
+_SMEM_LIMIT = 227 * 1024   # Hopper's per-block opt-in maximum
+
+
+def _smem_bytes(raw: bool, tb: int, B: int, vol: int) -> int:
+    """Shared memory of one block of ``tb`` bricks, as the kernel lays it
+    out (csrc/bin_apply.cu, ``smem_bytes``): the tile's starts, the frame
+    masks and the tables."""
+    table = tb * B * vol
+    words = -(-B // 32) * tb * vol + (2 * table + 2 * B if raw else table)
+    return ((tb + 1) * 8 + 15) // 16 * 16 + 4 * words
+
+
+def tile_bricks(raw: bool, B: int, vol: int) -> int:
+    """Bricks per block: ``TILE_THREADS // vol``, halved while the tile's
+    tables need more than the default 48 KB of shared memory."""
+    tb = max(1, min(TILE_THREADS, _MAX_THREADS) // vol)
+    while tb > 1 and _smem_bytes(raw, tb, B, vol) > _SMEM_DEFAULT:
+        tb //= 2
+    return tb
 
 
 def _check(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o) -> None:
@@ -166,7 +188,7 @@ def _library() -> Tuple[ctypes.CDLL, str]:
                               ("bin_apply_raw_f64", ctypes.c_double, 8)):
         fn = getattr(lib, name)
         fn.argtypes = (
-            [ptr] * n_ptr + [i32] * 5
+            [ptr] * n_ptr + [ctypes.c_longlong] + [i32] * 6
             + [real, real, i32, real, real, real, real] + [ptr]
         )
         fn.restype = i32
@@ -179,7 +201,7 @@ def build() -> str:
 
 
 def _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,
-                 smem_words: int):
+                 raw: bool):
     """Device of the inputs, validated for the kernel; None for CPU."""
     tensors = (s_flat, s_pay, starts, rows_cur)
     devices = {t.device for t in tensors}
@@ -193,20 +215,22 @@ def _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,
     _check(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("bin_apply needs contiguous inputs")
-    if vol > _MAX_THREADS or smem_words * 4 > _SMEM_LIMIT:
+    if vol > _MAX_THREADS or _smem_bytes(raw, 1, B, vol) > _SMEM_LIMIT:
         raise ValueError(f"B={B}, vol={vol} exceed the kernel's block limits")
     return device
 
 
 def _launch(name, device, tensors, nb, B, vol, f_bits, o, cfg) -> None:
     """Launch entry point ``name`` of the library on the current stream
-    with the tensors' pointers, the shape and the chain constants."""
+    with the tensors' pointers, the record count, the tile, the shape and
+    the chain constants."""
     lib, _ = _library()
+    tb = tile_bricks(name.startswith("bin_apply_raw"), B, vol)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(
-            *(t.data_ptr() for t in tensors), nb, B, vol, f_bits, o,
-            cfg.log_odds_occupied, cfg.log_odds_free,
+            *(t.data_ptr() for t in tensors), tensors[0].shape[0], nb, tb, B,
+            vol, f_bits, o, cfg.log_odds_occupied, cfg.log_odds_free,
             int(cfg.adaptive_update), cfg.adaptive_threshold,
             cfg.adaptive_max_ratio, cfg.log_odds_min, cfg.log_odds_max, stream,
         )
@@ -236,7 +260,7 @@ def bin_apply(
     """
     global launches
     device = _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,
-                          B * vol)
+                          raw=False)
     if device is None:
         return bin_apply_reference(
             s_flat, s_pay, starts, rows_cur, B=B, vol=vol, f_bits=f_bits, o=o,
@@ -278,7 +302,7 @@ def bin_apply_raw(
     """
     global raw_launches
     device = _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,
-                          2 * B * vol + 2 * B)
+                          raw=True)
     if device is None:
         return bin_apply_raw_reference(
             s_flat, s_pay, starts, rows_cur, B=B, vol=vol, f_bits=f_bits, o=o,

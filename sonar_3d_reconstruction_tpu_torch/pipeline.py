@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+from sonar_3d_reconstruction_tpu_torch.device import require_cuda
 from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
 from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     BrickGridState,
@@ -151,14 +152,16 @@ def map_ping_sequence(
     quaternions: np.ndarray,
     cfg: Optional[MapperConfig] = None,
     *,
-    device,
+    device=None,
     backend: str = "brick",
     state: Optional[BrickGridState] = None,
     dtype: torch.dtype = torch.float32,
     window: int = 1,
     dense_mode: str = "pallas",
 ) -> Tuple[BrickGridState, Dict[str, np.ndarray]]:
-    """Map a whole recorded ping sequence on ``device``.
+    """Map a whole recorded ping sequence on ``device``: the first CUDA
+    device when it is None (RuntimeError where there is none; pass "cpu"
+    to map on the CPU).
 
     ``images`` (P, range_bins, bearing_bins) polar intensity images;
     ``positions`` (P, 3) and ``quaternions`` (P, 4) xyzw odometry poses.
@@ -178,7 +181,8 @@ def map_ping_sequence(
         raise ValueError(f"backend {backend!r} is not ported; use 'brick'")
     is_raw_mode(dense_mode)
     # canonical form ("cuda" -> "cuda:0"), as tensors report their device
-    device = torch.empty(0, device=device).device
+    device = (require_cuda() if device is None
+              else torch.empty(0, device=device).device)
     if state is None:
         state = init_brick_grid(DEFAULT_BRICK_CAPACITY, dtype, device)
     if state.log_odds.device != device or state.log_odds.dtype != dtype:

@@ -10,6 +10,13 @@ cross the Pallas tile and chunk edges.  New rows agree within EXP_ULP_TOL
 update), touched masks and per-frame counts exactly.  The CUDA kernel
 itself is held against the plain versions on the card (``-m cuda``, and
 chip_smoke.py).
+
+The rules the kernel's design rests on are stated here in PyTorch and held
+against the plain versions bit for bit: a frame chain that steps only the
+frames that received a record (per voxel, or the OR over groups of 32
+voxels) is the full chain; a record's brick within a tile of TB bricks is
+its position against the tile's starts; summing raw records by runs of
+equal slots is ``index_add_``.
 """
 
 import numpy as np
@@ -23,23 +30,34 @@ from sonar_3d_reconstruction_tpu.config import MapperConfig as JaxMapperConfig  
 from sonar_3d_reconstruction_tpu.pallas.bin_kernel import pallas_bin_apply  # noqa: E402
 
 from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1  # noqa: E402
+from sonar_3d_reconstruction_tpu_torch.ops.logodds import (  # noqa: E402
+    finalize_voxel_updates,
+)
 
 from torch_parity import DTYPES, EXP_ULP_TOL, port_cfg  # noqa: E402
 
 B, VOL, O, F_BITS = 8, 64, 6, 3
 
 
-def random_window(seed, nb, n, max_count=40, dup=False):
+def random_window(seed, nb, n, max_count=40, dup=False, hot=None):
     """Records sorted by (brick, frame, offset), unique per slot unless
-    ``dup`` (raw candidates may repeat a slot)."""
+    ``dup`` (raw candidates may repeat a slot); brick ``hot`` draws about
+    half of them."""
     rng = np.random.default_rng(seed)
-    combos = np.sort(rng.choice(nb * B * VOL, size=n, replace=dup))
+    if hot is None:
+        combos = np.sort(rng.choice(nb * B * VOL, size=n, replace=dup))
+    else:
+        w = np.ones(nb)
+        w[hot] = nb
+        combos = (rng.choice(nb, size=n, p=w / w.sum()) * B * VOL
+                  + rng.integers(0, B * VOL, size=n))
+        combos = np.sort(combos if dup else np.unique(combos))
     brick = combos // (B * VOL)
     frame = (combos // VOL) % B
     off = combos % VOL
     key = (brick << (O + F_BITS)) | (frame << O) | off
-    cnt = rng.integers(1, max_count, size=n)
-    occ = np.minimum(rng.integers(0, 50, size=n), cnt)
+    cnt = rng.integers(1, max_count, size=key.size)
+    occ = np.minimum(rng.integers(0, 50, size=key.size), cnt)
     starts = np.searchsorted(brick, np.arange(nb + 1))
     rows = rng.normal(scale=4.0, size=(nb, VOL))
     return key, (cnt << 16) | occ, starts, rows
@@ -51,6 +69,9 @@ CASES = [
     pytest.param(3, 32, 1, 40, id="one-record"),
     pytest.param(4, 16, 0, 40, id="empty-window"),
     pytest.param(5, 40, 5 * B * VOL, 40, id="saturated-bricks"),
+    # the kernel's tiles take TB = 2 bricks: a ragged last tile, NB < TB
+    pytest.param(8, 7, 500, 40, id="odd-bricks"),
+    pytest.param(9, 1, 200, 40, id="one-brick"),
 ]
 
 
@@ -100,6 +121,8 @@ RAW_CASES = [
     pytest.param(13, 4, 3000, 0xFFFF, id="duplicates-large-counts"),
     pytest.param(14, 32, 1, 40, id="one-record"),
     pytest.param(15, 16, 0, 40, id="empty-window"),
+    pytest.param(18, 7, 2000, 40, id="odd-bricks"),
+    pytest.param(19, 1, 900, 40, id="one-brick"),
 ]
 
 
@@ -138,6 +161,44 @@ def test_raw_reference_matches_pallas_stats_out(t_dtype, j_dtype, seed, nb, n,
     assert int(got_occ.sum() + got_free.sum()) == np.unique(key).size
     tol = EXP_ULP_TOL[t_dtype] if adaptive else 0.0
     np.testing.assert_allclose(got_v.numpy(), want_v, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("t_dtype,j_dtype", DTYPES)
+@pytest.mark.parametrize("raw", [False, True], ids=["unique", "raw"])
+def test_reference_matches_pallas_with_a_hot_brick(t_dtype, j_dtype, raw):
+    """A brick with about half of the window's records, inside a tile of
+    light ones, in both forms."""
+    # unique records fill at most B * VOL = 512 slots of the hot brick
+    key, pay, starts, rows = random_window(20, 11, 3000 if raw else 1200,
+                                           dup=raw, hot=5)
+    cfg = JaxMapperConfig()
+    if raw:
+        want = _jax_raw(key, pay, starts, rows, cfg, j_dtype)
+        got = k1.bin_apply_raw_reference(
+            torch.as_tensor(key), torch.as_tensor(pay), torch.as_tensor(starts),
+            torch.as_tensor(rows.astype(np.dtype(j_dtype))), B=B, vol=VOL,
+            f_bits=F_BITS, o=O, cfg=port_cfg(cfg),
+        )
+    else:
+        want = pallas_bin_apply(
+            jnp.asarray(key.astype(np.uint32)),
+            jnp.asarray(pay.astype(np.uint32)),
+            jnp.asarray(starts.astype(np.int32)),
+            jnp.asarray(rows.astype(np.dtype(j_dtype))),
+            B=B, vol=VOL, f_bits=F_BITS, o=O, cfg=cfg, TB=3, CHUNK=256,
+            interpret=True,
+        )
+        got = k1.bin_apply_reference(
+            torch.as_tensor(key), torch.as_tensor(pay), torch.as_tensor(starts),
+            torch.as_tensor(rows.astype(np.dtype(j_dtype))), B=B, vol=VOL,
+            f_bits=F_BITS, o=O, cfg=port_cfg(cfg),
+        )
+    per_brick = np.diff(starts)
+    assert per_brick[5] > 4 * np.median(per_brick)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=EXP_ULP_TOL[t_dtype])
 
 
 @pytest.mark.parametrize("t_dtype", [torch.float64, torch.float32],
@@ -182,6 +243,141 @@ def test_raw_wrapper_on_cpu_runs_the_plain_version():
     want = k1.bin_apply_raw_reference(*args, **kw)
     assert (k1.raw_launches, k1.launches) == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _tables(key, pay, starts, nb):
+    """(count, n_occ) int64 tables (NB, B, VOL) summed per slot, and the
+    slots that received a record, whatever its payload."""
+    didx, dump = k1._dense_index(torch.as_tensor(key), torch.as_tensor(starts),
+                                 nb, B, VOL, F_BITS, O)
+    pay = torch.as_tensor(pay)
+
+    def summed(x):
+        out = torch.zeros(dump + 1, dtype=torch.int64)
+        return out.index_add_(0, didx, x)[:dump].reshape(nb, B, VOL)
+
+    received = summed(torch.ones_like(pay)) > 0
+    return summed(pay >> 16), summed(pay & 0xFFFF), received
+
+
+def _skipping_chain(cnt, occ, steps, rows, cfg):
+    """The frame chain of ``_frame_chain``, but a voxel steps frame f only
+    where ``steps`` (NB, B, VOL) says so; elsewhere it keeps its value and
+    adds nothing to the touched mask or the counts."""
+    nb, n_frames, vol = cnt.shape
+    dtype = rows.dtype
+    occ_l = torch.full((), cfg.log_odds_occupied, dtype=dtype)
+    free_l = torch.full((), cfg.log_odds_free, dtype=dtype)
+    v = rows
+    upd = torch.zeros((nb, vol), dtype=torch.bool)
+    occ_u = torch.zeros(n_frames, dtype=torch.int64)
+    free_u = torch.zeros(n_frames, dtype=torch.int64)
+    for f in range(n_frames):
+        s = steps[:, f, :]
+        c = cnt[:, f, :].to(dtype)
+        q = occ[:, f, :].to(dtype)
+        hit = (cnt[:, f, :] != 0) & s
+        is_occ = (occ[:, f, :] != 0) & s
+        upd = upd | hit
+        occ_u[f] = is_occ.sum()
+        free_u[f] = (hit & ~is_occ).sum()
+        stepped = finalize_voxel_updates(v, q * occ_l + (c - q) * free_l, c,
+                                         q > 0, cfg)
+        v = torch.where(s, stepped, v)
+    return v, upd, occ_u, free_u
+
+
+@pytest.mark.parametrize("t_dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("group", [1, 32], ids=["per-voxel", "per-warp"])
+def test_chain_over_received_frames_is_the_full_chain(t_dtype, adaptive,
+                                                      group):
+    """Stepping each voxel only through the frames that received a record,
+    per voxel or as the OR over groups of 32 voxels, gives the full chain's
+    rows, touched mask and per-frame counts bit for bit, with raw records
+    of count 0 and n_occ > 0 among them."""
+    nb = 24
+    key, pay, starts, rows = random_window(21, nb, 600, max_count=6,
+                                           dup=True)
+    rng = np.random.default_rng(21)
+    zero_count = rng.random(key.size) < 0.1
+    pay = np.where(zero_count, rng.integers(1, 4, key.size), pay)
+    cfg = port_cfg(JaxMapperConfig(adaptive_update=adaptive))
+    cnt, occ, received = _tables(key, pay, starts, nb)
+    assert ((cnt == 0) & (occ > 0)).any()
+    steps = (received.permute(0, 2, 1).reshape(-1, group, B).any(dim=1)
+             .repeat_interleave(group, dim=0).reshape(nb, VOL, B)
+             .permute(0, 2, 1))
+    r = torch.as_tensor(rows).to(t_dtype)
+    want = k1._frame_chain(cnt, occ, r, cfg)
+    got = _skipping_chain(cnt, occ, steps, r, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert float(steps.float().mean()) < 1.0
+    # a mask of the slots with a count alone misses the n_occ > 0 slots of
+    # count 0 in the occupied counts: the mask must come from the records
+    by_count = _skipping_chain(cnt, occ, cnt != 0, r, cfg)
+    assert not torch.equal(by_count[2], want[2])
+
+
+TILE_CASES = [
+    pytest.param([0, 5, 5, 9, 9, 9, 14, 20], id="empty-bricks"),
+    pytest.param([0, 3, 7, 7, 12, 12, 30, 31, 40], id="ragged-last-tile"),
+    pytest.param([0, 11], id="one-brick"),
+    pytest.param([3, 8, 8, 15, 21], id="range-not-at-zero"),
+]
+
+
+@pytest.mark.parametrize("starts", TILE_CASES)
+@pytest.mark.parametrize("tb", [1, 2, 3, 4, 8])
+def test_tile_rank_of_a_record_is_its_brick(starts, tb):
+    """A tile of TB bricks reads the pairs (2p, 2p+1) that hold its range
+    [starts[j*TB], starts[min((j+1)*TB, NB)]); a record's brick is the
+    tile's first brick plus the number of the tile's later starts it has
+    reached.  The tiles bin every lane of [starts[0], starts[NB]) once,
+    each in the brick ``searchsorted`` gives it."""
+    starts = torch.tensor(starts)
+    nb = starts.numel() - 1
+    seen = []
+    for j in range(-(-nb // tb)):
+        first = j * tb
+        nt = min(tb, nb - first)
+        st = starts[first:first + nt + 1]
+        r0, r1 = int(st[0]), int(st[nt])
+        lanes = torch.arange(2 * (r0 // 2), 2 * ((r1 + 1) // 2))
+        lanes = lanes[(lanes >= r0) & (lanes < r1)]
+        rank = (lanes[:, None] >= st[1:nt][None, :]).sum(dim=1)
+        seen.append(torch.stack([lanes, first + rank], dim=1))
+    seen = torch.cat(seen)
+    lanes = torch.arange(int(starts[0]), int(starts[-1]))
+    assert torch.equal(seen[:, 0], lanes)
+    assert torch.equal(seen[:, 1],
+                       torch.searchsorted(starts, lanes, right=True) - 1)
+
+
+@pytest.mark.parametrize("run_width", [2, 32, 64],
+                         ids=["pairs", "warp", "two-warps"])
+def test_raw_sums_by_runs_are_index_add(run_width):
+    """Summing count and n_occ over runs of equal slots within aligned
+    groups of ``run_width`` adjacent records (a thread's pair in the
+    kernel), one add per run, fills the tables ``index_add_`` fills."""
+    key, pay, starts, rows = random_window(22, 6, 8000, dup=True)
+    didx, dump = k1._dense_index(torch.as_tensor(key), torch.as_tensor(starts),
+                                 6, B, VOL, F_BITS, O)
+    pay = torch.as_tensor(pay)
+    cnt, occ = pay >> 16, pay & 0xFFFF
+    lane = torch.arange(didx.numel())
+    head = torch.ones_like(didx, dtype=torch.bool)
+    head[1:] = (didx[1:] != didx[:-1]) | (lane[1:] % run_width == 0)
+    run = torch.cumsum(head, 0) - 1
+    n_runs = int(run[-1]) + 1
+    assert n_runs < didx.numel()
+    for x in (cnt, occ):
+        want = torch.zeros(dump + 1, dtype=torch.int64).index_add_(0, didx, x)
+        sums = torch.zeros(n_runs, dtype=torch.int64).index_add_(0, run, x)
+        got = torch.zeros(dump + 1, dtype=torch.int64).index_add_(
+            0, didx[head], sums)
+        assert torch.equal(got, want)
 
 
 BAD_INPUTS = ["key_dtype", "rows_dtype", "starts_len", "vol", "frames",
@@ -241,8 +437,9 @@ def test_cuda_kernel_matches_plain_version(t_dtype, j_dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = port_cfg(JaxMapperConfig())
-    for seed, nb, n, max_count in [c.values for c in CASES]:
-        key, pay, starts, rows = random_window(seed, nb, n, max_count)
+    windows = [random_window(*c.values) for c in CASES]
+    windows.append(random_window(20, 11, 1200, hot=5))
+    for key, pay, starts, rows in windows:
         args = [torch.as_tensor(a, device="cuda") for a in (key, pay, starts)]
         args.append(torch.as_tensor(rows, device="cuda").to(t_dtype))
         kw = dict(B=B, vol=VOL, f_bits=F_BITS, o=O, cfg=cfg)
@@ -262,8 +459,9 @@ def test_cuda_raw_kernel_matches_plain_version(t_dtype, j_dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = port_cfg(JaxMapperConfig())
-    for seed, nb, n, max_count in [c.values for c in RAW_CASES]:
-        key, pay, starts, rows = random_window(seed, nb, n, max_count, dup=True)
+    windows = [random_window(*c.values, dup=True) for c in RAW_CASES]
+    windows.append(random_window(20, 11, 3000, dup=True, hot=5))
+    for key, pay, starts, rows in windows:
         args = [torch.as_tensor(a, device="cuda") for a in (key, pay, starts)]
         args.append(torch.as_tensor(rows, device="cuda").to(t_dtype))
         kw = dict(B=B, vol=VOL, f_bits=F_BITS, o=O, cfg=cfg)

@@ -323,6 +323,25 @@ def test_map_ping_sequence_rejects_what_it_does_not_map(small_cfg):
     assert int(st.used) == 0 and all(len(v) == 0 for v in stats.values())
 
 
+def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
+    """With no device the map is made on the first CUDA device; without one
+    that is a RuntimeError, never a quiet fall back to the CPU."""
+    cfg = port_cfg(small_cfg)
+    images, positions, quats = make_seq(small_cfg, 2, seed=66)
+    on_cpu, stats = pipeline.map_ping_sequence(
+        images, positions, quats, cfg, device="cpu", window=2
+    )
+    assert on_cpu.log_odds.device.type == "cpu"
+    assert (stats["num_candidates"] > 0).all()
+    if torch.cuda.is_available():
+        st, _ = pipeline.map_ping_sequence(images, positions, quats, cfg,
+                                           window=2)
+        assert st.log_odds.device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pipeline.map_ping_sequence(images, positions, quats, cfg, window=2)
+
+
 def test_port_runs_with_jax_blocked():
     """The port and its CPU path import neither jax nor the JAX package."""
     code = textwrap.dedent("""
