@@ -28,26 +28,29 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    exactly.  K1 and K1-raw in float32 and float64 on random windows
    (K1-raw with duplicate records: empty window, one brick, a brick whose
    range spans many blocks, large counts; both: NB not a multiple of the
-   tile's TB bricks, NB < TB, a hot brick inside a tile of light ones), at
-   their path's largest window shape, and on the real widest window
-   captured in phase 2 / 2b.  K2 (``lookup_accumulate``), driven on its
-   own: a chain of 16 dependent calls (the first inserts, the rest find
-   and accumulate) at two sizes, and a duplicate-key batch against the
-   host-side sequential loop.  K1's time is its device time per launch
-   (torch.profiler); K2's is per wrapper call in the chain, and its
-   kernel's device time beside it; plain versions are timed with CUDA
-   events.
+   tile's TB bricks, NB < TB, a hot brick inside a tile of light ones, a
+   brick range that starts past the first record and ends before the
+   last), at their path's largest window shape, and on the real widest
+   window captured in phase 2 / 2b.  K2 (``lookup_accumulate``), driven on
+   its own: a chain of 16 dependent calls (the first inserts, the rest
+   find and accumulate) at two sizes, and a duplicate-key batch against
+   the host-side sequential loop.  K1's time is its device time per launch
+   (torch.profiler, which must record the launches); K2's is per wrapper
+   call in the chain, and its kernel's device time beside it; plain
+   versions are timed with CUDA events.
 4. cross-check: a small survey mapped on the GPU (kernels) and on the CPU
    (plain versions), in both dense modes, must give equal per-ping stats,
    the same occupied voxels, and probabilities within 1e-5.
 
 The line before the last is a JSON object describing each kernel, with
-the bytes each call must move and its bound at the card's published rates
-(HBM_BYTES_PER_S, FP32_OPS_PER_S); the last line is
+the bytes each call must move and its bound at the card's published
+memory rate (HBM_BYTES_PER_S; for K1 also with u32 records); the last
+line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is visible.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -66,14 +69,12 @@ K2_CHAIN = 16         # dependent calls per K2 run, as scripts/profile_pallas.py
 # K2 (records, table slots): scripts/profile_pallas.py's own size, and one
 # bench window of unique voxels (16 x 55,077) into 2^22 slots
 K2_SIZES = [(131072, 1 << 19), (16 * 55077, 1 << 22)]
-# H100 SXM published peaks (NVIDIA's data sheet): memory and float32
-# outside the tensor cores
+# H100 SXM published memory rate (NVIDIA's data sheet).  K1 and K2 are
+# bound by their bytes: K1's float work is a few operations per voxel-frame
+# it steps (at most NB * B * vol of them) and K2's a sum per record, which
+# at the card's 67 TFLOP/s float32 peak take a fraction of the bytes' time.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# arithmetic of one frame-chain step of K1 (lo_sum 4, avg 1, the adaptive
-# sigmoid, scale and product 6, the sum 1), counted where a voxel-frame
-# holds a record
-K1_OPS_PER_STEP = 12
+PROFILE_TRIES = 5     # profiler runs before a kernel with no record fails
 
 
 def _synthetic_window(rng, nb, n_records, B, vol, o, f_bits, dup=False,
@@ -120,47 +121,76 @@ def _time_ms(fn, reps=20):
 def _device_ms(fn, kernel_name, reps=20, flush=None):
     """Device time per launch of the kernels named ``kernel_name`` while
     ``fn`` runs ``reps`` times, from torch.profiler, with ``flush`` (a
-    tensor larger than L2) rewritten before each call when given; None
-    when the profiler recorded none."""
+    tensor larger than L2) rewritten before each call when given.  The
+    profiler now and then records no launch in a run: it profiles again,
+    and raises after PROFILE_TRIES runs without one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush.add_(1)
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel_name in e.key:
-            total += getattr(e, "device_time_total", None) or e.cuda_time_total
-            count += e.count
-    return total / count / 1e3 if count else None
-
-
-def _kernel_ms(fn, kernel_name):
-    """``_device_ms``, or the CUDA-event time per call of ``fn`` (host
-    overhead included) when the profiler sees no launch."""
-    ms = _device_ms(fn, kernel_name)
-    if ms is None:
-        print(f"  (the profiler saw no {kernel_name}: CUDA-event time per "
-              "call instead)", flush=True)
-        ms = _time_ms(fn)
-    return ms
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.add_(1)
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if kernel_name in e.key:
+                total += (getattr(e, "device_time_total", None)
+                          or e.cuda_time_total)
+                count += e.count
+        if count:
+            return total / count / 1e3
+    raise RuntimeError(f"torch.profiler recorded no {kernel_name} launch in "
+                       f"{PROFILE_TRIES} runs")
 
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes, ops):
-    """(least ms, what bounds it) at the card's published rates."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound_ms(nbytes):
+    """Least ms to move ``nbytes`` at the card's published memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def k1_bytes(args, raw, B):
+    """Bytes a K1 call on ``args`` (s_flat, s_pay, starts, rows) must move:
+    its inputs read once, its outputs (new rows, touched bytes and, raw,
+    two (B,) int64 counts) written once.  Also the same with the records
+    as the u32 values they carry, the TPU kernel's record streams, in place
+    of the port's int64 (half of each record's 16 bytes are zero words)."""
+    s_flat, _, _, rows = args
+    out = rows.numel() * (rows.element_size() + 1) + (16 * B if raw else 0)
+    nbytes = _nbytes(*args) + out
+    return nbytes, nbytes - 8 * s_flat.shape[0]
+
+
+@contextlib.contextmanager
+def keep_widest_k1_call(raw):
+    """While open, ``grid.brick``'s K1 wrapper of the form ``raw`` also
+    keeps copies of the inputs of its call with the most record lanes in
+    the dict it yields (``L``: the lanes, ``args``: the inputs)."""
+    from sonar_3d_reconstruction_tpu_torch.grid import brick
+
+    name = "bin_apply_raw" if raw else "bin_apply"
+    kept = {}
+    fn = getattr(brick, name)
+
+    def wrapped(s_flat, s_pay, starts, rows_cur, **kw):
+        if s_flat.shape[0] > kept.get("L", -1):
+            kept.update(L=s_flat.shape[0], args=tuple(
+                t.clone() for t in (s_flat, s_pay, starts, rows_cur)))
+        return fn(s_flat, s_pay, starts, rows_cur, **kw)
+
+    setattr(brick, name, wrapped)
+    try:
+        yield kept
+    finally:
+        setattr(brick, name, fn)
 
 
 def _reset_counts():
@@ -198,19 +228,6 @@ def phase_build():
     return dev
 
 
-def _keep_widest(widest, fn):
-    """``fn`` (a K1 wrapper) that also keeps, in ``widest``, copies of the
-    inputs of its call with the most record lanes."""
-
-    def wrapped(s_flat, s_pay, starts, rows_cur, **kw):
-        if s_flat.shape[0] > widest.get("L", -1):
-            widest.update(L=s_flat.shape[0], args=tuple(
-                t.clone() for t in (s_flat, s_pay, starts, rows_cur)))
-        return fn(s_flat, s_pay, starts, rows_cur, **kw)
-
-    return wrapped
-
-
 def phase_main_path(dev, dense_mode):
     """Map the bench survey twice in ``dense_mode``; returns (the warm
     run's K1 launches of that mode, its largest window's shape, the inputs
@@ -221,7 +238,6 @@ def phase_main_path(dev, dense_mode):
 
     from bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
-    from sonar_3d_reconstruction_tpu_torch.grid import brick
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
         extract_occupied_brick,
     )
@@ -244,13 +260,8 @@ def phase_main_path(dev, dense_mode):
         return st, stats, time.perf_counter() - t0
 
     name = "bin_apply_raw" if raw else "bin_apply"
-    kept = {}
-    kernel = getattr(brick, name)
-    setattr(brick, name, _keep_widest(kept, kernel))
-    try:
+    with keep_widest_k1_call(raw) as kept:
         _, _, cold_s = run()
-    finally:
-        setattr(brick, name, kernel)
     # on the host until phase 3, out of the warm run's peak memory
     kept["args"] = tuple(t.cpu() for t in kept["args"])
     torch.cuda.reset_peak_memory_stats(dev)
@@ -371,6 +382,10 @@ def _k1_form(dev, shape, real, raw):
         windows.append(tuple(torch.as_tensor(x, device=dev)
                              for x in (key, pay, starts))
                        + (torch.as_tensor(rows, device=dev),))
+    # bricks 3..60 of the first window over all of its records: a range
+    # that starts past lane 0 and ends before the last lane, as one tile's
+    s_flat, s_pay, starts, rows = windows[0]
+    windows.insert(-1, (s_flat, s_pay, starts[3:62], rows[3:61]))
     windows.append(tuple(t.to(dev) for t in real))
     max_err = 0.0
     for dtype in (torch.float32, torch.float64):
@@ -382,7 +397,7 @@ def _k1_form(dev, shape, real, raw):
             err = float((got[0].double() - want[0].double()).abs().max())
             same = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
             if err > KERNEL_TOL or not same:
-                label = "the real widest window" if w == len(cases) else (
+                label = "the real widest window" if w == len(windows) - 1 else (
                     f"NB={rows.shape[0]}, L={s_flat.shape[0]}")
                 raise AssertionError(
                     f"{kernel.__name__} != plain ({dtype}, {label}): max "
@@ -394,39 +409,34 @@ def _k1_form(dev, shape, real, raw):
         return w[:3] + (w[3].float(),)
 
     synthetic, real = f32(windows[-2]), f32(windows[-1])
-    ms = _kernel_ms(lambda: kernel(*real, **kw), "bin_apply_kernel")
-    synthetic_ms = _kernel_ms(lambda: kernel(*synthetic, **kw),
+    ms = _device_ms(lambda: kernel(*real, **kw), "bin_apply_kernel")
+    synthetic_ms = _device_ms(lambda: kernel(*synthetic, **kw),
                               "bin_apply_kernel")
     plain_ms = _time_ms(lambda: plain(*real, **kw))
-    # what the real window's call must move, and the chain's arithmetic
-    # where a voxel-frame holds a record
-    s_flat, s_pay, starts, rows = real
-    out = kernel(*real, **kw)
-    nbytes = _nbytes(*real, *out)
-    lane = torch.arange(s_flat.shape[0], device=dev)
-    brick_of = torch.searchsorted(starts, lane, right=True) - 1
-    steps = torch.unique(
-        (brick_of * B + ((s_flat >> o) & ((1 << f_bits) - 1))) * vol
-        + (s_flat & (vol - 1))
-    ).numel()
-    bound_ms, bound_by = _bound(nbytes, K1_OPS_PER_STEP * steps)
+    nbytes, nbytes_u32 = k1_bytes(real, raw, B)
+    bound_ms, bound_u32_ms = _bound_ms(nbytes), _bound_ms(nbytes_u32)
+    n_rows, n_lanes = real[3].shape[0], real[0].shape[0]
     print(
         f"phase 3 kernels: {kernel.__name__} == plain in float32 and float64 "
         f"over {len(windows)} windows each"
         f"{' with duplicate records' if raw else ''} (max |diff| {max_err}, "
         f"tolerance {KERNEL_TOL}), the real widest window included; TB={tb} "
         f"bricks per block; float32 device time per launch: real widest "
-        f"window (NB={rows.shape[0]}, L={s_flat.shape[0]}) {ms:.4f} ms "
-        f"(plain {plain_ms:.4f} ms), synthetic largest window (NB="
+        f"window (NB={n_rows}, L={n_lanes}) {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms), synthetic largest window (NB="
         f"{shape['n_bricks']}, L={shape['n_lanes']}, B={B}) "
         f"{synthetic_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} bytes), "
-        f"{bound_ms / ms:.1%} of it",
+        f"{bound_ms / ms:.1%} of it; with u32 records {bound_u32_ms:.4f} ms "
+        f"({nbytes_u32} bytes), {bound_u32_ms / ms:.1%} of it",
         flush=True,
     )
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                share_of_bound=bound_ms / ms, synthetic_ms=synthetic_ms,
-                tile_bricks=tb)
+    return dict(max_abs_err=max_err, ms=ms,
+                ms_of="device time per launch (torch.profiler)",
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                bytes=nbytes, share_of_bound=bound_ms / ms,
+                bound_u32_records_ms=bound_u32_ms,
+                share_of_u32_bound=bound_u32_ms / ms,
+                synthetic_ms=synthetic_ms, tile_bricks=tb)
 
 
 def _distinct_keys(rng, u):
@@ -488,15 +498,16 @@ def phase_k2(dev):
         plain_ms = _time_ms(
             lambda: chain(k2.lookup_accumulate_reference), reps=3
         ) / K2_CHAIN
-        kernel_ms = _kernel_ms(
+        kernel_ms = _device_ms(
             lambda: k2.lookup_accumulate(khi, klo, upd, *got),
             "lookup_accumulate_kernel",
         )
         # one call reads its records and both tables and writes the tables
         nbytes = _nbytes(khi, klo, upd, rows0, vals0, *got)
-        bound_ms, bound_by = _bound(nbytes, 0)
-        timed = dict(ms=ms, plain_ms=plain_ms, kernel_ms=kernel_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+        bound_ms = _bound_ms(nbytes)
+        timed = dict(ms=ms, ms_of="wrapper call in a chain (CUDA events)",
+                     plain_ms=plain_ms, kernel_ms=kernel_ms,
+                     bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
                      share_of_bound=bound_ms / ms)
         fill = (got[0][:, :128] != 0xFFFFFFFF).sum(dim=1)
         lines.append(

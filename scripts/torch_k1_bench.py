@@ -4,31 +4,29 @@ builds of it, on synthetic and on real windows, on one NVIDIA GPU.
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 scripts/torch_k1_bench.py [--variant NAME=PATH ...]
-        [--old NAME=PATH ...] [--probe NAME=PATH ...] [--e2e PAIRS]
-        [--out FILE [--sass]]
+        [--e2e PAIRS] [--out FILE]
 
 Every build is timed in the same process, in turns, on the same inputs:
   * ``new``: the package's kernel, with the wrapper's tile (TB), and the
     same kernel at other tiles (``tb1`` .. ``tb8``);
   * ``--variant NAME=PATH``: another source with the package's C
-    interface (an edited copy of csrc/bin_apply.cu), built the same way;
-  * ``--old NAME=PATH``: a source with the interface of the first CUDA
-    K1 (one block per brick: no record count, tile or alignment argument).
+    interface (an edited copy of csrc/bin_apply.cu), built the same way.
 Inputs: the synthetic window of each form at the main path's largest
 shape (``chip_smoke._synthetic_window``, records spread evenly), and the
 real widest window of each dense mode, captured from a run of the
 256-ping bench survey (``pipeline.map_ping_sequence``, window 16,
-float32).  Each build is checked bit-equal to the plain version on every
-input before it is timed.  Times are CUDA-event means over back-to-back
-launches (inputs warm in L2, as chip_smoke.py times them) and medians of
-single launches after a 128 MiB write that evicts L2 ("cold").  The
+float32) as chip_smoke.py captures it.  Each build is checked bit-equal
+to the plain version on every input before it is timed.  Times are
+CUDA-event means over back-to-back calls of the wrapper (its host time:
+"warm"), and profiler device times per launch with inputs warm in L2 and
+after a 128 MiB write that evicts L2 ("cold"), medians over rounds.  The
 script also counts the warp-frames the real windows step through (frames
-in which some voxel of a 32-voxel warp holds a record), the bytes each
-call must move and its memory bound at 3.35 TB/s.  With ``--e2e N`` it
-maps the survey in both dense modes N times with each K1 build in turn
-(``new`` and the first ``--old``), alternating which goes first.
-Results go to stdout and, as JSON, to ``--out`` when given (with
-``--sass``, the package build's ``cuobjdump -sass`` beside it).
+in which some voxel of a 32-voxel warp holds a record) and gives each
+call's bytes and memory bound (``chip_smoke.k1_bytes``), with int64 and
+with u32 records.  With ``--e2e N`` it maps the survey in both dense
+modes N times with each K1 build in turn (``new`` and the first
+``--variant``), alternating which goes first.  Results go to stdout and,
+as JSON, to ``--out`` when given.
 """
 
 import argparse
@@ -47,17 +45,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
-    HBM_BYTES_PER_S,
+    _bound_ms,
     _device_ms,
-    _nbytes,
     _synthetic_window,
     _time_ms,
+    k1_bytes,
+    keep_widest_k1_call,
 )
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig  # noqa: E402
-from sonar_3d_reconstruction_tpu_torch.grid import brick  # noqa: E402
 from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1  # noqa: E402
 from sonar_3d_reconstruction_tpu_torch.kernels.build import (  # noqa: E402
-    _nvcc,
     build_shared_library,
 )
 
@@ -70,34 +67,29 @@ NAMES = ("bin_apply_f32", "bin_apply_f64", "bin_apply_raw_f32",
          "bin_apply_raw_f64")
 
 
-def _bind(path, old):
+def _bind(path):
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in NAMES:
         real = ctypes.c_double if name.endswith("f64") else ctypes.c_float
         n_ptr = 8 if "raw" in name else 6
-        ints = [i32] * 5 if old else [ctypes.c_longlong] + [i32] * 6
         fn = getattr(lib, name)
-        fn.argtypes = ([ptr] * n_ptr + ints
+        fn.argtypes = ([ptr] * n_ptr + [ctypes.c_longlong] + [i32] * 6
                        + [real, real, i32, real, real, real, real] + [ptr])
         fn.restype = i32
     return lib
 
 
-def _launcher(lib, old, tb=None):
+def _launcher(lib, tb=None):
     """A replacement for ``k1._launch`` that calls ``lib``, with the
     wrapper's tile unless ``tb`` says."""
 
     def launch(name, device, tensors, nb, B_, vol, f_bits, o, cfg):
-        if old:
-            shape = (nb, B_, vol, f_bits, o)
-        else:
-            t = tb or k1.tile_bricks(name.startswith("bin_apply_raw"), B_, vol)
-            shape = (tensors[0].shape[0], nb, t, B_, vol, f_bits, o)
+        t = tb or k1.tile_bricks(name.startswith("bin_apply_raw"), B_, vol)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(
-            *(x.data_ptr() for x in tensors), *shape,
-            cfg.log_odds_occupied, cfg.log_odds_free,
+            *(x.data_ptr() for x in tensors), tensors[0].shape[0], nb, t, B_,
+            vol, f_bits, o, cfg.log_odds_occupied, cfg.log_odds_free,
             int(cfg.adaptive_update), cfg.adaptive_threshold,
             cfg.adaptive_max_ratio, cfg.log_odds_min, cfg.log_odds_max, stream,
         )
@@ -107,19 +99,17 @@ def _launcher(lib, old, tb=None):
     return launch
 
 
-def build_all(variants, olds):
+def build_all(variants):
     """{name: (launch function, ptxas lines)} for every build."""
     path, log = build_shared_library(k1.SOURCE)
-    if not log:
-        log = "(already built)"
-    lib = _bind(path, old=False)
-    out = {"new": (_launcher(lib, False), log)}
+    lib = _bind(path)
+    out = {"new": (_launcher(lib), log or "(already built)")}
     for tb in (1, 2, 4, 8):
-        out[f"tb{tb}"] = (_launcher(lib, False, tb=tb), "")
-    for spec, old in [(v, False) for v in variants] + [(v, True) for v in olds]:
+        out[f"tb{tb}"] = (_launcher(lib, tb=tb), "")
+    for spec in variants:
         name, src = spec.split("=", 1)
         p, log = build_shared_library(os.path.abspath(src))
-        out[name] = (_launcher(_bind(p, old), old), log)
+        out[name] = (_launcher(_bind(p)), log)
     return out
 
 
@@ -132,24 +122,11 @@ def capture_real_windows(dev):
     cfg = MapperConfig()
     images, positions, quats = make_inputs(cfg, 256)
     widest = {}
-
-    def keep(raw, fn):
-        def wrapped(s_flat, s_pay, starts, rows_cur, **kw):
-            if s_flat.shape[0] > widest.get(raw, (torch.empty(0),))[0].shape[0]:
-                widest[raw] = tuple(t.clone() for t in
-                                    (s_flat, s_pay, starts, rows_cur))
-            return fn(s_flat, s_pay, starts, rows_cur, **kw)
-        return wrapped
-
-    orig = brick.bin_apply, brick.bin_apply_raw
-    brick.bin_apply = keep(False, orig[0])
-    brick.bin_apply_raw = keep(True, orig[1])
-    try:
-        for mode in ("pallas", "pallas-raw"):
+    for raw, mode in ((False, "pallas"), (True, "pallas-raw")):
+        with keep_widest_k1_call(raw) as kept:
             map_ping_sequence(images, positions, quats, cfg, device=dev,
                               window=16, dtype=torch.float32, dense_mode=mode)
-    finally:
-        brick.bin_apply, brick.bin_apply_raw = orig
+        widest[raw] = kept["args"]
     torch.cuda.synchronize()
     return widest
 
@@ -168,9 +145,7 @@ def window_facts(args, raw):
     """Bytes the call must move, its bound, and the warp-frame fill."""
     s_flat, s_pay, starts, rows = args
     nb = rows.shape[0]
-    # outputs: new rows, touched bytes and, raw, two (B,) int64 counts
-    out_bytes = rows.numel() * (rows.element_size() + 1) + (16 * B if raw else 0)
-    nbytes = _nbytes(*args) + out_bytes
+    nbytes, nbytes_u32 = k1_bytes(args, raw, B)
     lane = torch.arange(s_flat.shape[0], device=s_flat.device)
     brick_of = torch.searchsorted(starts, lane, right=True) - 1
     frame = (s_flat >> O) & ((1 << F_BITS) - 1)
@@ -190,7 +165,8 @@ def window_facts(args, raw):
                   .amax(dim=1).sum().item())
     return {
         "NB": nb, "L": int(s_flat.shape[0]), "bytes": int(nbytes),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": _bound_ms(nbytes), "bytes_u32_records": int(nbytes_u32),
+        "bound_u32_records_ms": _bound_ms(nbytes_u32),
         "warp_frame_fill": wf / (nb * B * VOL // 32),
         "voxel_frame_fill": vf / (nb * B * VOL),
         "lane_max_fill": lane_max / (nb * B * VOL // 32),
@@ -198,16 +174,10 @@ def window_facts(args, raw):
     }
 
 
-def _median(xs):
-    """Median of the samples the profiler recorded (None: it did not)."""
-    xs = [x for x in xs if x is not None]
-    return statistics.median(xs) if xs else float("nan")
-
-
-def time_builds(builds, inputs, unchecked=(), rounds=3):
+def time_builds(builds, inputs, rounds=3):
     """{input name: {build: {warm_ms, device_ms, cold_device_ms}}}, every
-    build but the ``unchecked`` probes checked against the plain version
-    first; builds alternate in order."""
+    build checked against the plain version first; builds alternate in
+    order."""
     cfg = MapperConfig()
     kw = dict(B=B, vol=VOL, f_bits=F_BITS, o=O, cfg=cfg)
     flush = torch.zeros(32 << 20, dtype=torch.float32, device="cuda")
@@ -221,8 +191,6 @@ def time_builds(builds, inputs, unchecked=(), rounds=3):
                 a = args[:3] + (args[3].to(dtype),)
                 w = plain(*a, **kw)
                 for b_name, (launch, _) in builds.items():
-                    if b_name in unchecked:
-                        continue
                     k1._launch = launch
                     got = fn(*a, **kw)
                     torch.cuda.synchronize()
@@ -243,7 +211,7 @@ def time_builds(builds, inputs, unchecked=(), rounds=3):
                                    flush=flush))
             results[in_name] = {
                 b: {f"{k}_ms" if k != "cold" else "cold_device_ms":
-                    _median(v) for k, v in s.items()}
+                    statistics.median(v) for k, v in s.items()}
                 for b, s in samples.items()
             }
             for b_name, t in results[in_name].items():
@@ -290,16 +258,9 @@ def e2e(dev, launches, pairs):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", action="append", default=[])
-    ap.add_argument("--old", action="append", default=[])
-    ap.add_argument("--probe", action="append", default=[],
-                    help="NAME=PATH: a variant timed but not checked")
-    ap.add_argument("--sass", action="store_true",
-                    help="write cuobjdump -sass of the package's build")
     ap.add_argument("--e2e", type=int, default=0)
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
-    if args.sass and not args.out:
-        ap.error("--sass needs --out")
     if not torch.cuda.is_available():
         print("torch_k1_bench: no CUDA device visible", file=sys.stderr)
         return 1
@@ -309,8 +270,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    builds = build_all(args.variant + args.probe, args.old)
-    unchecked = {p.split("=", 1)[0] for p in args.probe}
+    builds = build_all(args.variant)
     for name, (_, log) in builds.items():
         for ln in log.splitlines():
             if "Used" in ln or "spill" in ln or "Compiling" in ln:
@@ -329,14 +289,14 @@ def main() -> int:
     facts = {n: window_facts(a, raw) for n, (raw, a) in inputs.items()}
     for n, f in facts.items():
         print(f"{n}: {json.dumps(f)}", flush=True)
-    times = time_builds(builds, inputs, unchecked)
+    times = time_builds(builds, inputs)
     result = {"device": smi, "tile_threads": k1.TILE_THREADS,
               "windows": facts, "times": times}
     if args.e2e:
         launches = {"new": builds["new"][0]}
-        if args.old:
-            old = args.old[0].split("=", 1)[0]
-            launches[old] = builds[old][0]
+        if args.variant:
+            other = args.variant[0].split("=", 1)[0]
+            launches[other] = builds[other][0]
         walls = e2e(dev, launches, args.e2e)
         result["e2e_walls_s"] = walls
         for mode, per in walls.items():
@@ -349,13 +309,6 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    if args.sass:
-        lib, _ = build_shared_library(k1.SOURCE)
-        cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True).stdout
-        with open(os.path.splitext(args.out)[0] + "_sass.txt", "w") as f:
-            f.write(sass)
     return 0
 
 

@@ -72,9 +72,13 @@
 // (scripts/torch_k1_bench.py; numbers and runs in PERF.md) at the main
 // path's widest real windows, float32: the unique form at 46-47 % and
 // the raw form at 48-50 % of that memory bound, 2x and 1.8x faster than
-// one block per brick stepping every frame.  In the unique form the frame
-// chain takes more than half of the time (binning and the fixed costs
-// alone take 6.4 of 15 us).  Measured and left out, because they gained
+// one block per brick stepping every frame.  Half of each record's 16
+// bytes are zero high words: against the bound of u32 records (L*8 bytes,
+// as the TPU kernel reads them) both forms are at about a quarter, and
+// such streams, from the window sort on, are the next step.  In the
+// unique form the frame chain takes more than half of the time (binning
+// and the fixed costs alone take 6.4 of 15 us).  Measured and left out,
+// because they gained
 // nothing or lost: summing raw runs across a warp (warp prefix sums, or
 // __reduce_add_sync over run masks); 16-byte record loads; loading a
 // thread's next records, or the value rows, ahead of time; a persistent

@@ -11,12 +11,14 @@ update), touched masks and per-frame counts exactly.  The CUDA kernel
 itself is held against the plain versions on the card (``-m cuda``, and
 chip_smoke.py).
 
-The rules the kernel's design rests on are stated here in PyTorch and held
-against the plain versions bit for bit: a frame chain that steps only the
-frames that received a record (per voxel, or the OR over groups of 32
-voxels) is the full chain; a record's brick within a tile of TB bricks is
-its position against the tile's starts; summing raw records by runs of
-equal slots is ``index_add_``.
+The rules the kernel's design rests on are held against the plain
+versions bit for bit: a frame chain that steps only the frames that
+received a record (per voxel, or the OR over groups of 32 voxels) is the
+full chain; a record's brick within a tile of TB bricks is its position
+against the tile's starts, and the plain versions called tile by tile
+give the whole window's result; a raw stream summed by runs of equal
+slots gives the raw form's result.  The tiles and run-summed streams are
+also inputs of the ``cuda`` tests.
 """
 
 import numpy as np
@@ -328,56 +330,117 @@ TILE_CASES = [
 ]
 
 
+def window_with_starts(seed, starts, extra=3):
+    """Unique records whose bricks own the lane ranges ``starts`` gives,
+    plus ``extra`` lanes past the last range (and any before the first)
+    that belong to no brick.  Keys carry box ids, not ranks."""
+    rng = np.random.default_rng(seed)
+    starts = np.asarray(starts)
+    nb = starts.size - 1
+    n_lanes = starts[-1] + extra
+    brick_of = np.searchsorted(starts, np.arange(n_lanes), side="right") - 1
+    slot = np.zeros(n_lanes, dtype=np.int64)
+    for i in range(nb):
+        r0, r1 = starts[i], starts[i + 1]
+        slot[r0:r1] = np.sort(rng.choice(B * VOL, size=r1 - r0, replace=False))
+    box = 100 + 7 * np.clip(brick_of, 0, nb)
+    key = (box << (O + F_BITS)) | slot
+    cnt = rng.integers(1, 40, size=n_lanes)
+    occ = np.minimum(rng.integers(0, 50, size=n_lanes), cnt)
+    rows = rng.normal(scale=4.0, size=(nb, VOL))
+    return key, (cnt << 16) | occ, starts, rows
+
+
+def split_into_tiles(starts, tb):
+    """(first brick, starts of the tile) for each tile of ``tb`` bricks."""
+    nb = starts.numel() - 1
+    return [(j * tb, starts[j * tb:min((j + 1) * tb, nb) + 1])
+            for j in range(-(-nb // tb))]
+
+
 @pytest.mark.parametrize("starts", TILE_CASES)
 @pytest.mark.parametrize("tb", [1, 2, 3, 4, 8])
 def test_tile_rank_of_a_record_is_its_brick(starts, tb):
-    """A tile of TB bricks reads the pairs (2p, 2p+1) that hold its range
-    [starts[j*TB], starts[min((j+1)*TB, NB)]); a record's brick is the
-    tile's first brick plus the number of the tile's later starts it has
-    reached.  The tiles bin every lane of [starts[0], starts[NB]) once,
-    each in the brick ``searchsorted`` gives it."""
-    starts = torch.tensor(starts)
+    """The kernel's split of a window into tiles of TB bricks.  A tile
+    reads the pairs (2p, 2p+1) that hold its range [starts[j*TB],
+    starts[min((j+1)*TB, NB)]); a record's brick is the tile's first brick
+    plus the number of the tile's later starts it has reached.  Each lane
+    the plain version bins lands in one tile, in the brick the plain
+    version gives it; and both plain versions, called on one tile's starts
+    and rows over the whole record arrays (a range past lane 0, lanes past
+    its end), give that tile's part of the whole window's result."""
+    key, pay, starts_np, rows = window_with_starts(23, starts)
+    s_flat, s_pay, starts = (torch.as_tensor(a) for a in (key, pay, starts_np))
     nb = starts.numel() - 1
+    didx, dump = k1._dense_index(s_flat, starts, nb, B, VOL, F_BITS, O)
+    kept = torch.nonzero(didx != dump).flatten()
     seen = []
-    for j in range(-(-nb // tb)):
-        first = j * tb
-        nt = min(tb, nb - first)
-        st = starts[first:first + nt + 1]
+    for first, st in split_into_tiles(starts, tb):
+        nt = st.numel() - 1
         r0, r1 = int(st[0]), int(st[nt])
         lanes = torch.arange(2 * (r0 // 2), 2 * ((r1 + 1) // 2))
         lanes = lanes[(lanes >= r0) & (lanes < r1)]
         rank = (lanes[:, None] >= st[1:nt][None, :]).sum(dim=1)
         seen.append(torch.stack([lanes, first + rank], dim=1))
     seen = torch.cat(seen)
-    lanes = torch.arange(int(starts[0]), int(starts[-1]))
-    assert torch.equal(seen[:, 0], lanes)
-    assert torch.equal(seen[:, 1],
-                       torch.searchsorted(starts, lanes, right=True) - 1)
+    assert torch.equal(seen[:, 0], kept)
+    assert torch.equal(seen[:, 1], didx[kept] // (B * VOL))
+
+    kw = dict(B=B, vol=VOL, f_bits=F_BITS, o=O, cfg=port_cfg(JaxMapperConfig()))
+    r = torch.as_tensor(rows)
+    whole = k1.bin_apply_reference(s_flat, s_pay, starts, r, **kw)
+    whole_raw = k1.bin_apply_raw_reference(s_flat, s_pay, starts, r, **kw)
+    counts = torch.zeros((2, B), dtype=torch.int64)
+    for first, st in split_into_tiles(starts, tb):
+        part = slice(first, first + st.numel() - 1)
+        got = k1.bin_apply_reference(s_flat, s_pay, st, r[part], **kw)
+        assert all(torch.equal(a, b[part]) for a, b in zip(got, whole))
+        got = k1.bin_apply_raw_reference(s_flat, s_pay, st, r[part], **kw)
+        assert all(torch.equal(a, b[part]) for a, b in zip(got[:2], whole_raw))
+        counts += torch.stack(got[2:])
+    assert torch.equal(counts, torch.stack(whole_raw[2:]))
+
+
+def sum_runs(key, pay, starts, run_width):
+    """The raw records with each run of equal keys within aligned groups
+    of ``run_width`` adjacent lanes (a thread's records in the kernel)
+    replaced by one record holding the run's count and n_occ sums, and the
+    starts of the shorter stream."""
+    key, pay, starts = (torch.as_tensor(a) for a in (key, pay, starts))
+    lane = torch.arange(key.numel())
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[1:] = (key[1:] != key[:-1]) | (lane[1:] % run_width == 0)
+    run = torch.cumsum(head, 0) - 1
+    n_runs = int(run[-1]) + 1 if key.numel() else 0
+
+    def summed(x):
+        return torch.zeros(n_runs, dtype=torch.int64).index_add_(0, run, x)
+
+    cnt, occ = summed(pay >> 16), summed(pay & 0xFFFF)
+    assert int(occ.max()) <= 0xFFFF
+    return (key[head].numpy(), ((cnt << 16) | occ).numpy(),
+            torch.searchsorted(lane[head], starts).numpy())
 
 
 @pytest.mark.parametrize("run_width", [2, 32, 64],
                          ids=["pairs", "warp", "two-warps"])
 def test_raw_sums_by_runs_are_index_add(run_width):
     """Summing count and n_occ over runs of equal slots within aligned
-    groups of ``run_width`` adjacent records (a thread's pair in the
-    kernel), one add per run, fills the tables ``index_add_`` fills."""
+    groups of ``run_width`` adjacent records, one record per run, leaves
+    the raw form's result as it was: the plain version sums the shorter
+    stream with ``index_add_`` to the same rows, touched mask and
+    per-frame counts, bit for bit, in float32 and float64."""
     key, pay, starts, rows = random_window(22, 6, 8000, dup=True)
-    didx, dump = k1._dense_index(torch.as_tensor(key), torch.as_tensor(starts),
-                                 6, B, VOL, F_BITS, O)
-    pay = torch.as_tensor(pay)
-    cnt, occ = pay >> 16, pay & 0xFFFF
-    lane = torch.arange(didx.numel())
-    head = torch.ones_like(didx, dtype=torch.bool)
-    head[1:] = (didx[1:] != didx[:-1]) | (lane[1:] % run_width == 0)
-    run = torch.cumsum(head, 0) - 1
-    n_runs = int(run[-1]) + 1
-    assert n_runs < didx.numel()
-    for x in (cnt, occ):
-        want = torch.zeros(dump + 1, dtype=torch.int64).index_add_(0, didx, x)
-        sums = torch.zeros(n_runs, dtype=torch.int64).index_add_(0, run, x)
-        got = torch.zeros(dump + 1, dtype=torch.int64).index_add_(
-            0, didx[head], sums)
-        assert torch.equal(got, want)
+    s_key, s_pay, s_starts = sum_runs(key, pay, starts, run_width)
+    assert s_key.size < key.size and np.unique(s_key).size < s_key.size
+    kw = dict(B=B, vol=VOL, f_bits=F_BITS, o=O, cfg=port_cfg(JaxMapperConfig()))
+    for dtype in (torch.float32, torch.float64):
+        r = torch.as_tensor(rows).to(dtype)
+        want = k1.bin_apply_raw_reference(
+            *(torch.as_tensor(a) for a in (key, pay, starts)), r, **kw)
+        got = k1.bin_apply_raw_reference(
+            *(torch.as_tensor(a) for a in (s_key, s_pay, s_starts)), r, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 BAD_INPUTS = ["key_dtype", "rows_dtype", "starts_len", "vol", "frames",
@@ -439,6 +502,13 @@ def test_cuda_kernel_matches_plain_version(t_dtype, j_dtype):
     cfg = port_cfg(JaxMapperConfig())
     windows = [random_window(*c.values) for c in CASES]
     windows.append(random_window(20, 11, 1200, hot=5))
+    # each tile of a window as the kernel's only input: ranges past lane 0
+    # with lanes past their end, ragged and empty bricks
+    for c in TILE_CASES:
+        key, pay, starts, rows = window_with_starts(23, c.values[0])
+        for first, st in split_into_tiles(torch.as_tensor(starts), 3):
+            windows.append((key, pay, st.numpy(),
+                            rows[first:first + st.numel() - 1]))
     for key, pay, starts, rows in windows:
         args = [torch.as_tensor(a, device="cuda") for a in (key, pay, starts)]
         args.append(torch.as_tensor(rows, device="cuda").to(t_dtype))
@@ -461,6 +531,17 @@ def test_cuda_raw_kernel_matches_plain_version(t_dtype, j_dtype):
     cfg = port_cfg(JaxMapperConfig())
     windows = [random_window(*c.values, dup=True) for c in RAW_CASES]
     windows.append(random_window(20, 11, 3000, dup=True, hot=5))
+    # long runs of one slot, and the same records summed by runs (fewer,
+    # larger records that still repeat slots)
+    key, pay, starts, rows = random_window(22, 6, 8000, dup=True)
+    windows.append((key, pay, starts, rows))
+    for run_width in (2, 64):
+        windows.append(sum_runs(key, pay, starts, run_width) + (rows,))
+    for c in TILE_CASES:
+        key, pay, starts, rows = window_with_starts(23, c.values[0])
+        for first, st in split_into_tiles(torch.as_tensor(starts), 3):
+            windows.append((key, pay, st.numpy(),
+                            rows[first:first + st.numel() - 1]))
     for key, pay, starts, rows in windows:
         args = [torch.as_tensor(a, device="cuda") for a in (key, pay, starts)]
         args.append(torch.as_tensor(rows, device="cuda").to(t_dtype))
