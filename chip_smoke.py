@@ -33,19 +33,27 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    last), at their path's largest window shape, and on the real widest
    window captured in phase 2 / 2b.  K2 (``lookup_accumulate``), driven on
    its own: a chain of 16 dependent calls (the first inserts, the rest
-   find and accumulate) at two sizes, and a duplicate-key batch against
-   the host-side sequential loop.  K1's time is its device time per launch
-   (torch.profiler, which must record the launches); K2's is per wrapper
-   call in the chain, and its kernel's device time beside it; plain
-   versions are timed with CUDA events.
+   find and accumulate) at two sizes against the distinct-key plain
+   version, with the grouping kernels (``group_records``) against theirs;
+   a hot bucket (K2_HOT records of a few keys in one bucket of a
+   full-size batch) against the plain version of the kernel's rule and,
+   on that bucket, the host-side sequential loop; a full-size batch of
+   repeated keys against the plain version and, on a cut, the sequential
+   loop; small repeated-key tables, down to one bucket that receives
+   every record, against the sequential loop.  K1's
+   time is its device time per launch (torch.profiler, which must record
+   the launches); K2's is per wrapper call in the chain, with its table
+   kernel's device time, each of its kernels' device time and its
+   launches per call (profiler) beside it; plain versions are timed with
+   CUDA events.
 4. cross-check: a small survey mapped on the GPU (kernels) and on the CPU
    (plain versions), in both dense modes, must give equal per-ping stats,
    the same occupied voxels, and probabilities within 1e-5.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
-memory rate (HBM_BYTES_PER_S; for K1 also with u32 records); the last
-line is
+memory rate (HBM_BYTES_PER_S; for K1 also with u32 records, for K2 with
+u32 key words); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is visible.
 """
@@ -69,6 +77,12 @@ K2_CHAIN = 16         # dependent calls per K2 run, as scripts/profile_pallas.py
 # K2 (records, table slots): scripts/profile_pallas.py's own size, and one
 # bench window of unique voxels (16 x 55,077) into 2^22 slots
 K2_SIZES = [(131072, 1 << 19), (16 * 55077, 1 << 22)]
+K2_HOT = (20000, 400)       # hot-bucket records and their distinct keys
+K2_HOT_BUCKET = 7
+K2_REPEATED_KEYS = 300000   # distinct keys of the full-size repeated batch
+K2_SEQUENTIAL_CUT = 20000   # its records that the host loop checks
+# (buckets, records, distinct keys) of small repeated-key tables
+K2_SMALL_TABLES = [(64, 3000, 1000), (4, 20000, 3000), (1, 20000, 400)]
 # H100 SXM published memory rate (NVIDIA's data sheet).  K1 and K2 are
 # bound by their bytes: K1's float work is a few operations per voxel-frame
 # it steps (at most NB * B * vol of them) and K2's a sum per record, which
@@ -148,6 +162,39 @@ def _device_ms(fn, kernel_name, reps=20, flush=None):
                        f"{PROFILE_TRIES} runs")
 
 
+def _profile_calls(fn, reps=10):
+    """({kernel name: (device ms, launches) per call}, kernel launches per
+    call as the host issued them (``cudaLaunchKernel`` events)) of ``fn``,
+    from torch.profiler over ``reps`` calls.  The profiler now and then
+    drops kernel records: it profiles again until it has one kernel for
+    each launch, and raises after PROFILE_TRIES runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels, launches, launched = {}, 0, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3 / reps,
+                                   n + 1 / reps)
+                launched += not e.name.startswith(("Memset", "Memcpy"))
+            elif "LaunchKernel" in e.name:
+                launches += 1
+        if launches and launched == launches:
+            return kernels, launches / reps
+    raise RuntimeError(f"torch.profiler recorded another number of kernels "
+                       f"than of launches in {PROFILE_TRIES} runs")
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -167,6 +214,16 @@ def k1_bytes(args, raw, B):
     out = rows.numel() * (rows.element_size() + 1) + (16 * B if raw else 0)
     nbytes = _nbytes(*args) + out
     return nbytes, nbytes - 8 * s_flat.shape[0]
+
+
+def k2_bytes(khi, klo, upd, key_rows, values):
+    """Bytes a K2 call must move: its records and both tables read once,
+    both tables written once.  Also the same with every key word as the
+    u32 it carries (records and key rows), as the TPU kernel holds them,
+    in place of the port's int64."""
+    tables = _nbytes(key_rows, values)
+    nbytes = _nbytes(khi, klo, upd) + 2 * tables
+    return nbytes, nbytes - 4 * (khi.numel() + klo.numel() + 2 * key_rows.numel())
 
 
 @contextlib.contextmanager
@@ -450,25 +507,117 @@ def _distinct_keys(rng, u):
     return ks >> 32, ks & 0xFFFFFFFF
 
 
-def phase_k2(dev):
-    """Drive K2 on its own (it has no product path, as in the JAX package):
-    chains of dependent calls at the profile script's size and at a
-    hash-backend window's size, then a duplicate-key batch.  Returns a
-    dict of the kernel's JSON fields at the larger size."""
-    import numpy as np
+def _k2_tables(cap, dev):
+    """An empty K2 table of ``cap`` slots: (key rows, values)."""
     import torch
 
     from sonar_3d_reconstruction_tpu_torch.grid.hash import empty_key_rows
+
+    return (empty_key_rows(cap, dev),
+            torch.zeros((cap // 128, 128), dtype=torch.float32, device=dev))
+
+
+def _k2_call_facts(k2, khi, klo, upd, rows, vals):
+    """One K2 call on these inputs: the table kernel's device time, each
+    K2 kernel's device time and the kernel launches per call (profiler),
+    the bytes and bounds, its share of them, and the bucket segments'
+    lengths."""
+    def call():
+        return k2.lookup_accumulate(khi, klo, upd, rows, vals)
+
+    kernel_ms = _device_ms(call, "lookup_accumulate_kernel")
+    kernels, launches = _profile_calls(call)
+    by_kernel = {}
+    for name, (t, _) in kernels.items():
+        short = next((w.split("(")[0] for w in name.split("::")
+                      if w.startswith(("k2_", "lookup_accumulate_kernel"))),
+                     "other" if "Memset" not in name else "memset")
+        by_kernel[short] = by_kernel.get(short, 0.0) + t
+    nbytes, nbytes_u32 = k2_bytes(khi, klo, upd, rows, vals)
+    _, seg = k2.group_records(khi, klo, upd, rows.shape[0])
+    lengths = seg[:, 1]
+    return dict(
+        kernel_ms=kernel_ms,
+        kernel_ms_of="table kernel device time per launch (torch.profiler)",
+        launches_per_call=launches, device_ms_by_kernel=by_kernel,
+        bound_ms=_bound_ms(nbytes), bound_by="bytes", bytes=nbytes,
+        kernel_share_of_bound=_bound_ms(nbytes) / kernel_ms,
+        bound_u32_keys_ms=_bound_ms(nbytes_u32), bytes_u32_keys=nbytes_u32,
+        kernel_share_of_u32_bound=_bound_ms(nbytes_u32) / kernel_ms,
+        segment_max=int(lengths.max()),
+        segment_mean=float(lengths.float().mean()),
+    )
+
+
+def _k2_same(got, want):
+    import torch
+
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _keys_in_bucket(rng, dev, nb, bucket, n):
+    """(khi, klo) int64 tensors on ``dev`` of n distinct 48-bit keys whose
+    bucket among nb is ``bucket``, drawn on the card from a seed taken
+    from ``rng``."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.kernels import lookup_accumulate as k2
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    pool = torch.randint(0, 1 << 48, (3 * n * nb // 2,), generator=gen,
+                         device=dev)
+    _, ids = k2.bucket_pass_reference(pool >> 32, pool & 0xFFFFFFFF, nb)
+    ks = torch.unique(pool[ids == bucket])[:n]
+    if ks.numel() != n:
+        raise AssertionError(f"only {ks.numel()} keys drawn in bucket {bucket}")
+    return ks >> 32, ks & 0xFFFFFFFF
+
+
+def k2_hot_batch(rng, dev, u, nb):
+    """(khi, klo, upd) on ``dev``: K2_HOT records drawn from a few keys of
+    bucket K2_HOT_BUCKET, mixed at random among about u minus that many
+    records of distinct keys in the other buckets of nb."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.kernels import lookup_accumulate as k2
+
+    n_hot, n_keys = K2_HOT
+    hot_hi, hot_lo = _keys_in_bucket(rng, dev, nb, K2_HOT_BUCKET, n_keys)
+    pick = torch.as_tensor(rng.integers(0, n_keys, size=n_hot), device=dev)
+    o_hi, o_lo = (torch.as_tensor(x, device=dev)
+                  for x in _distinct_keys(rng, u - n_hot))
+    _, o_ids = k2.bucket_pass_reference(o_hi, o_lo, nb)
+    other = o_ids != K2_HOT_BUCKET
+    lanes = torch.as_tensor(rng.permutation(n_hot + int(other.sum())),
+                            device=dev)
+    khi = torch.cat([hot_hi[pick], o_hi[other]])[lanes]
+    klo = torch.cat([hot_lo[pick], o_lo[other]])[lanes]
+    upd = torch.as_tensor(rng.normal(size=khi.numel()).astype(np.float32),
+                          device=dev)
+    return khi, klo, upd
+
+
+def phase_k2(dev):
+    """Drive K2 on its own (it has no product path, as in the JAX package):
+    chains of dependent calls at the profile script's size and at a
+    hash-backend window's size; a hot bucket inside a full-size batch; a
+    full-size batch of repeated keys; small repeated-key tables.
+    Returns a dict of the kernel's JSON fields at the larger size, the
+    other cases' under their own keys."""
+    import numpy as np
+    import torch
+
     from sonar_3d_reconstruction_tpu_torch.kernels import lookup_accumulate as k2
 
     rng = np.random.default_rng(2)
-    launches, max_err, lines, timed = 0, 0.0, [], None
+    launches, max_err, lines, sizes = 0, 0.0, [], []
     for u, cap in K2_SIZES:
         khi, klo = (torch.as_tensor(x, device=dev)
                     for x in _distinct_keys(rng, u))
         upd = torch.as_tensor(rng.normal(size=u).astype(np.float32), device=dev)
-        rows0 = empty_key_rows(cap, dev)
-        vals0 = torch.zeros((cap // 128, 128), dtype=torch.float32, device=dev)
+        rows0, vals0 = _k2_tables(cap, dev)
 
         def chain(fn):
             rows, vals = rows0, vals0
@@ -494,52 +643,136 @@ def phase_k2(dev):
         if n_keys != u:
             raise AssertionError(f"{n_keys} keys in the table, not {u}")
         max_err = max(max_err, err)
+        # the grouping kernels: the plain grouping's segment lengths and
+        # records, in record order once unpacked
+        nb = cap // 128
+        packed, seg = k2.group_records(khi, klo, upd, nb)
+        plain_groups = k2.group_records_reference(khi, klo, upd, nb)
+        if not (torch.equal(seg[:, 1], plain_groups[1][:, 1]) and all(
+                torch.equal(a, b) for a, b in zip(
+                    k2.unpack_records(packed, seg),
+                    k2.unpack_records(*plain_groups)))):
+            raise AssertionError(f"group_records != plain at U={u}")
         ms = _time_ms(lambda: chain(k2.lookup_accumulate), reps=3) / K2_CHAIN
         plain_ms = _time_ms(
             lambda: chain(k2.lookup_accumulate_reference), reps=3
         ) / K2_CHAIN
-        kernel_ms = _device_ms(
-            lambda: k2.lookup_accumulate(khi, klo, upd, *got),
-            "lookup_accumulate_kernel",
-        )
-        # one call reads its records and both tables and writes the tables
-        nbytes = _nbytes(khi, klo, upd, rows0, vals0, *got)
-        bound_ms = _bound_ms(nbytes)
-        timed = dict(ms=ms, ms_of="wrapper call in a chain (CUDA events)",
-                     plain_ms=plain_ms, kernel_ms=kernel_ms,
-                     bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
-                     share_of_bound=bound_ms / ms)
+        facts = _k2_call_facts(k2, khi, klo, upd, *got)
+        sizes.append(dict(
+            facts, records=u, slots=cap, ms=ms,
+            ms_of="wrapper call in a chain of 16 (CUDA events)",
+            plain_ms=plain_ms, share_of_bound=facts["bound_ms"] / ms,
+            share_of_u32_bound=facts["bound_u32_keys_ms"] / ms,
+        ))
         fill = (got[0][:, :128] != 0xFFFFFFFF).sum(dim=1)
         lines.append(
             f"U={u} into {cap} slots (fullest bucket {int(fill.max())} of "
-            f"128): wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms per call; bound {bound_ms:.4f} ms "
-            f"({nbytes} bytes)"
+            f"128; segments of {facts['segment_mean']:.1f} records on "
+            f"average, {facts['segment_max']} at most): wrapper {ms:.4f} ms, "
+            f"table kernel alone {facts['kernel_ms']:.4f} ms, "
+            f"{facts['launches_per_call']:g} kernel launches and "
+            f"{sum(facts['device_ms_by_kernel'].values()):.4f} ms of device "
+            f"time per call, plain {plain_ms:.4f} ms; bound "
+            f"{facts['bound_ms']:.4f} ms ({facts['bytes']} bytes; wrapper "
+            f"{facts['bound_ms'] / ms:.1%}, kernel "
+            f"{facts['kernel_share_of_bound']:.1%} of it), with u32 keys "
+            f"{facts['bound_u32_keys_ms']:.4f} ms ({facts['bytes_u32_keys']} "
+            f"bytes)"
         )
 
-    # repeated keys in one call: a later record finds the earlier one's slot
-    ks = np.stack(_distinct_keys(rng, 1000), -1)[rng.integers(0, 1000, 3000)]
-    khi, klo = (torch.as_tensor(ks[:, i].copy(), device=dev) for i in (0, 1))
-    upd = torch.as_tensor(rng.normal(size=3000).astype(np.float32), device=dev)
-    rows = empty_key_rows(64 * 128, dev)
-    vals = torch.zeros((64, 128), dtype=torch.float32, device=dev)
-    got = want = (rows, vals)
+    u, cap = K2_SIZES[-1]
+    nb = cap // 128
+    # a hot bucket: K2_HOT records of few keys in one bucket, among
+    # distinct keys in the others; 128 keys insert, their repeats
+    # accumulate, the rest drop
+    n_hot, n_hot_keys = K2_HOT
+    khi, klo, upd = k2_hot_batch(rng, dev, u, nb)
+    n_batch = khi.numel()
+    _, ids = k2.bucket_pass_reference(khi, klo, nb)
+    hot = ids == K2_HOT_BUCKET
+    tables = _k2_tables(cap, dev)
+    got = want = seq = tables
     for _ in range(2):
         got = k2.lookup_accumulate(khi, klo, upd, *got)
-        want = k2.lookup_accumulate_sequential(khi, klo, upd, *want)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        want = k2.lookup_accumulate_plain(khi, klo, upd, *want)
+        seq = k2.lookup_accumulate_sequential(khi[hot], klo[hot], upd[hot],
+                                              *seq)
+    if not _k2_same(got, want):
+        raise AssertionError("lookup_accumulate != plain with a hot bucket")
+    b = K2_HOT_BUCKET
+    if not (torch.equal(got[0][b], seq[0][b])
+            and torch.equal(got[1][b], seq[1][b])):
+        raise AssertionError("the hot bucket != the host's sequential loop")
+    if int((got[0][b, :128] != 0xFFFFFFFF).sum()) != 128:
+        raise AssertionError("the hot bucket is not full")
+    hot_facts = _k2_call_facts(k2, khi, klo, upd, *got)
+    hot_facts["ms"] = _time_ms(lambda: k2.lookup_accumulate(khi, klo, upd,
+                                                            *got))
+    hot_facts["ms_of"] = "wrapper call (CUDA events)"
+
+    # repeated keys at full size, against the plain version; the host loop
+    # takes a cut
+    keys = np.stack(_distinct_keys(rng, K2_REPEATED_KEYS), -1)[
+        rng.integers(0, K2_REPEATED_KEYS, size=u)]
+    khi, klo = (torch.as_tensor(keys[:, i].copy(), device=dev) for i in (0, 1))
+    upd = torch.as_tensor(rng.normal(size=u).astype(np.float32), device=dev)
+    got = want = tables
+    for _ in range(2):
+        got = k2.lookup_accumulate(khi, klo, upd, *got)
+        want = k2.lookup_accumulate_plain(khi, klo, upd, *want)
+    if not _k2_same(got, want):
+        raise AssertionError("lookup_accumulate != plain on repeated keys")
+    cut = slice(0, K2_SEQUENTIAL_CUT)
+    got_cut = k2.lookup_accumulate(khi[cut], klo[cut], upd[cut], *tables)
+    if not _k2_same(got_cut, k2.lookup_accumulate_sequential(
+            khi[cut], klo[cut], upd[cut], *tables)):
         raise AssertionError("lookup_accumulate != the sequential loop on "
-                             "duplicate keys")
+                             "repeated keys")
+    rep_facts = _k2_call_facts(k2, khi, klo, upd, *got)
+    rep_facts["ms"] = _time_ms(lambda: k2.lookup_accumulate(khi, klo, upd,
+                                                            *got))
+    rep_facts["ms_of"] = "wrapper call (CUDA events)"
+
+    # repeated keys in one call: a later record finds the earlier one's
+    # slot; small tables, down to one bucket that receives every record
+    for nb, n, n_keys in K2_SMALL_TABLES:
+        ks = np.stack(_distinct_keys(rng, n_keys), -1)[
+            rng.integers(0, n_keys, n)]
+        khi, klo = (torch.as_tensor(ks[:, i].copy(), device=dev)
+                    for i in (0, 1))
+        upd = torch.as_tensor(rng.normal(size=n).astype(np.float32),
+                              device=dev)
+        got = want = _k2_tables(nb * 128, dev)
+        for _ in range(2):
+            got = k2.lookup_accumulate(khi, klo, upd, *got)
+            want = k2.lookup_accumulate_sequential(khi, klo, upd, *want)
+        if not _k2_same(got, want):
+            raise AssertionError(f"lookup_accumulate != the sequential loop "
+                                 f"on {n} records of {n_keys} keys into "
+                                 f"{nb} buckets")
     print(
         f"phase 3 kernels: lookup_accumulate == plain over chains of "
         f"{K2_CHAIN} dependent calls (max |diff| {max_err}, tolerance "
-        f"{KERNEL_TOL}; {launches} kernel launches); "
+        f"{KERNEL_TOL}; {launches} table-kernel launches), group_records == "
+        f"plain; "
         + "; ".join(lines)
-        + "; 2 calls of 3000 records over 1000 repeated keys == the host's "
-        "sequential loop",
+        + f"; a hot bucket of {n_hot} records over {n_hot_keys} keys in a "
+        f"batch of {n_batch} records "
+        f"into {cap} slots == plain (2 calls) and its row == the host's "
+        f"sequential loop: wrapper {hot_facts['ms']:.4f} ms, table kernel "
+        f"{hot_facts['kernel_ms']:.4f} ms; {u} records over "
+        f"{K2_REPEATED_KEYS} keys == plain (2 calls), its first "
+        f"{K2_SEQUENTIAL_CUT} == the sequential loop: wrapper "
+        f"{rep_facts['ms']:.4f} ms, table kernel {rep_facts['kernel_ms']:.4f}"
+        f" ms; 2 calls each of "
+        + ", ".join(f"{n} records of {k} keys into {nb} buckets"
+                    for nb, n, k in K2_SMALL_TABLES)
+        + " == the sequential loop",
         flush=True,
     )
-    return dict(timed, max_abs_err=max_err, chain_launches=launches)
+    return dict(sizes[-1], max_abs_err=max_err, chain_launches=launches,
+                smaller_size=sizes[0], hot_bucket=hot_facts,
+                repeated_keys=rep_facts)
 
 
 def phase_cross_check(dev):
