@@ -49,13 +49,36 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 4. cross-check: a small survey mapped on the GPU (kernels) and on the CPU
    (plain versions), in both dense modes, must give equal per-ping stats,
    the same occupied voxels, and probabilities within 1e-5.
+5. entry points, on the card (each step prints its wall time with the
+   card's name and power limit):
+   a. the reference selftest scenario (500x512, 0.1 m voxels, 3 pings)
+      through ``SonarMapper.process_sonar_image`` on the card and on the
+      CPU: equal per-ping stats, equal occupied voxels, probabilities
+      within 1e-5; then ENTRY_PINGS bench pings through
+      ``process_sonar_image`` at the library defaults, timed one by one;
+   b. ``SonarMapper.map_sequence`` over phase 2's survey (window 16) from
+      a fresh mapper: its touched voxels and log-odds equal phase 2's
+      final map exactly;
+   c. reads and snapshots of that map: ``get_point_cloud(include_free=
+      True)``; ``query_probabilities`` at QUERY_POINTS points (touched
+      voxel centres, voxel corners, untouched points) against the same
+      answers computed on the host; ``save_map`` -> ``load_map_brick`` on
+      the card, bit-equal to the mapper's voxels;
+   d. the CLI in subprocesses: ``make-bag`` (CLI_PINGS pings of 500x512),
+      ``map-bag --offline --window 16 --save-map --save-cloud`` (its
+      voxel count equal to an in-process ``map_ping_sequence`` over the
+      same decoded bag) and ``query``; every exit code checked.
+   K1 launches are counted on each of these paths (the counts set to 0
+   just before a path and read just after; the CLI reports its own) and
+   must be non-zero.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
 memory rate (HBM_BYTES_PER_S; for K1 also with u32 records, for K2 with
 u32 key words); the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
-no CUDA device is visible.
+``{"ok": true, "device": {...}}``.  Each kernel's entry also names the
+paths that launched it (``paths``, ``launches_by_path``).  Exits non-zero
+without a result when no CUDA device is visible.
 """
 
 import contextlib
@@ -89,6 +112,11 @@ K2_SMALL_TABLES = [(64, 3000, 1000), (4, 20000, 3000), (1, 20000, 400)]
 # at the card's 67 TFLOP/s float32 peak take a fraction of the bytes' time.
 HBM_BYTES_PER_S = 3.35e12
 PROFILE_TRIES = 5     # profiler runs before a kernel with no record fails
+ENTRY_PINGS = 32      # bench pings timed one by one through the mapper
+QUERY_POINTS = 100000  # point queries of the survey map
+CLI_PINGS = 64        # pings of the CLI's synthetic bag
+SELFTEST_CFG = {"voxel_resolution": 0.1, "min_probability": 0.6,
+                "intensity_threshold": 30}
 
 
 def _synthetic_window(rng, nb, n_records, B, vol, o, f_bits, dup=False,
@@ -282,7 +310,7 @@ def phase_build():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    return dev
+    return dev, smi
 
 
 def phase_main_path(dev, dense_mode):
@@ -834,6 +862,295 @@ def phase_cross_check(dev):
         )
 
 
+def _wall(fn):
+    """(fn(), host seconds around it, ending in a device sync)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _k1_launches_of(fn):
+    """(fn(), K1 launches while it ran): the counts set to 0 just before
+    and read just after; fails when K1 was not launched."""
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+
+    _reset_counts()
+    out = fn()
+    if bin_apply.launches == 0:
+        raise AssertionError(f"{fn.__name__} never launched bin_apply")
+    return out, bin_apply.launches
+
+
+def _without_times(stats):
+    return {k: v for k, v in stats.items()
+            if k not in ("processing_time", "avg_processing_time")}
+
+
+def _entry_selftest(dev, smi):
+    """Step a: the selftest scenario on the card and the CPU, then the
+    per-ping time at the library defaults.  Returns (K1 launches of the
+    card's mapper, ms per ping)."""
+    import numpy as np
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.cli import selftest_pings
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", "cpu")):
+        m = SonarMapper(SELFTEST_CFG, device=device)
+
+        def selftest():
+            return [_without_times(s) for s in selftest_pings(m)]
+
+        if name == "gpu":
+            (stats, launches), wall = _wall(lambda: _k1_launches_of(selftest))
+        else:
+            stats = selftest()
+        pts, probs = (m.get_point_cloud()[k] for k in ("points",
+                                                        "probabilities"))
+        out[name] = (stats, {tuple(p): q for p, q in zip(pts.round(6), probs)})
+    (g_stats, g), (c_stats, c) = out["gpu"], out["cpu"]
+    if g_stats != c_stats:
+        raise AssertionError(f"selftest stats differ: {g_stats} vs {c_stats}")
+    if g.keys() != c.keys() or not g:
+        raise AssertionError(f"selftest occupied sets differ: {len(g)} vs "
+                             f"{len(c)}")
+    diff = max(abs(g[k] - c[k]) for k in g)
+    if diff > F32_PROB_TOL:
+        raise AssertionError(f"selftest probabilities differ by {diff}")
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, ENTRY_PINGS)
+    m = SonarMapper(cfg, device=dev)
+    ms = []
+    for x in zip(images, positions, quats):
+        _, t = _wall(lambda: m.process_sonar_image(*x))
+        ms.append(t * 1e3)
+    warm = np.asarray(ms[1:])
+    print(
+        f"phase 5a selftest: 3 pings of 500x512 through "
+        f"SonarMapper.process_sonar_image on the card and the CPU: per-ping "
+        f"stats equal ({g_stats[-1]['num_occupied']} occupied, "
+        f"{g_stats[-1]['num_free']} free in the last), {len(g)} occupied "
+        f"voxels equal, max probability diff {diff:.3g} (tolerance "
+        f"{F32_PROB_TOL}); card wall {wall:.3f} s, {launches} bin_apply "
+        f"launches; then {ENTRY_PINGS} bench pings at the library defaults: "
+        f"first {ms[0]:.1f} ms, then median {np.median(warm):.2f} ms, mean "
+        f"{warm.mean():.2f} ms, max {warm.max():.2f} ms per ping, "
+        f"{m.num_voxels} voxels [{smi}]",
+        flush=True,
+    )
+    return launches, float(np.median(warm))
+
+
+def _query_points(keys, res, rng):
+    """QUERY_POINTS world points: touched voxel centres, voxel lower
+    corners (cell boundaries) and untouched voxel centres, in thirds."""
+    import numpy as np
+
+    n = QUERY_POINTS // 3
+    touched = keys[rng.integers(0, len(keys), size=n)].astype(np.float64)
+    corners = keys[rng.integers(0, len(keys), size=n)].astype(np.float64)
+    far = keys[rng.integers(0, len(keys), size=QUERY_POINTS - 2 * n)]
+    far = far + rng.integers(-40, 40, size=far.shape) + [0, 0, 400]
+    return np.concatenate([(touched + 0.5) * res, corners * res,
+                           (far + 0.5) * res])
+
+
+def _host_probabilities(pts, keys, log_odds, res):
+    """The answers of a query on the host: float64 keys of the points,
+    looked up among the touched voxels (0.5 where none)."""
+    import numpy as np
+
+    def code(k):
+        k = k.astype(np.int64) + (1 << 20)
+        return (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
+
+    q = np.floor(pts / res).astype(np.int64)
+    codes = code(keys)
+    order = np.argsort(codes)
+    pos = np.clip(np.searchsorted(codes[order], code(q)), 0, len(codes) - 1)
+    hit = codes[order][pos] == code(q)
+    lo = np.where(hit, log_odds[order][pos], 0).astype(np.float64)
+    return 1.0 / (1.0 + np.exp(-lo)), hit
+
+
+def _entry_sequence_and_reads(dev, smi, main_voxels):
+    """Steps b and c.  Returns (K1 launches of map_sequence, timings)."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
+        load_map_brick,
+        save_map,
+    )
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, 256)
+    m = SonarMapper(cfg, device=dev)
+
+    def map_sequence():
+        return m.map_sequence(images, positions, quats, window=16)
+
+    (stats, launches), seq_s = _wall(lambda: _k1_launches_of(map_sequence))
+    if stats["overflowed"].any():
+        raise AssertionError("a map_sequence window overflowed")
+    keys, log_odds = touched_voxels_brick(m.state)
+    if not (np.array_equal(keys, main_voxels[0])
+            and np.array_equal(log_odds, main_voxels[1])):
+        raise AssertionError("map_sequence's voxels differ from phase 2's map")
+    print(
+        f"phase 5b map_sequence: 256 pings, window 16, fresh SonarMapper: "
+        f"{len(keys)} touched voxels and their log-odds equal phase 2's map "
+        f"(tolerance 0); wall {seq_s:.3f} s, {launches} bin_apply launches "
+        f"[{smi}]",
+        flush=True,
+    )
+
+    cloud, cloud_s = _wall(lambda: m.get_point_cloud(include_free=True))
+    n_cls = cloud["num_occupied"] + cloud["num_free"] + cloud["num_unknown"]
+    if n_cls != m.num_voxels or cloud["num_occupied"] == 0 or not all(
+            np.isfinite(cloud[k][0]).all() and np.isfinite(cloud[k][1]).all()
+            for k in ("occupied", "free", "unknown")):
+        raise AssertionError(f"classified cloud of {n_cls} voxels, map has "
+                             f"{m.num_voxels}, or not finite")
+    rng = np.random.default_rng(5)
+    pts = _query_points(keys, cfg.voxel_resolution, rng)
+    want, hit = _host_probabilities(pts, keys, log_odds, cfg.voxel_resolution)
+    far = slice(2 * (QUERY_POINTS // 3), None)
+    if hit[far].any():
+        raise AssertionError("an untouched query point lies in a touched voxel")
+    got, query_s = _wall(lambda: m.query_probabilities(pts))
+    if not np.array_equal(got, want) or not (got[far] == 0.5).all():
+        raise AssertionError(f"query_probabilities differ from the host's: "
+                             f"max |diff| {np.abs(got - want).max()}")
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "survey.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _, save_s = _wall(lambda: save_map(path, m.state, cfg))
+    (state, _), load_s = _wall(lambda: load_map_brick(path, device=dev))
+    if state.log_odds.device != dev:
+        raise AssertionError(f"the snapshot loaded on {state.log_odds.device}")
+    l_keys, l_lo = touched_voxels_brick(state)
+    if not (np.array_equal(l_keys, keys) and np.array_equal(l_lo, log_odds)
+            and torch.equal(state.min_bounds, m.state.min_bounds)
+            and torch.equal(state.max_bounds, m.state.max_bounds)):
+        raise AssertionError("the loaded snapshot differs from the map")
+    print(
+        f"phase 5c reads: get_point_cloud(include_free=True) "
+        f"{cloud['num_occupied']} occupied, {cloud['num_free']} free, "
+        f"{cloud['num_unknown']} unknown in {cloud_s:.3f} s; "
+        f"query_probabilities at {len(pts)} points (touched centres, voxel "
+        f"corners, {int((~hit).sum())} untouched at 0.5) equal to the host's "
+        f"answers, {query_s * 1e3:.1f} ms; save_map {save_s:.3f} s "
+        f"({os.path.getsize(path)} bytes), load_map_brick on the card "
+        f"{load_s:.3f} s, {len(l_keys)} voxels bit-equal [{smi}]",
+        flush=True,
+    )
+    return launches, dict(map_sequence_s=seq_s, point_cloud_s=cloud_s,
+                          query_ms=query_s * 1e3, save_map_s=save_s,
+                          load_map_brick_s=load_s, voxels=len(keys))
+
+
+def _cli(*argv):
+    """Run the port's CLI in a subprocess; (stdout, seconds).  A non-zero
+    exit fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sonar_3d_reconstruction_tpu_torch", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {argv[0]} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def _entry_cli(dev, smi):
+    """Step d.  Returns (K1 launches the CLI's map-bag reported, its
+    summary)."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.io.bag import load_bag_sequence
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    bag, snap, pc2 = (os.path.join(work, f) for f in
+                      ("cli.db3", "cli.npz", "cli.pc2"))
+    for f in (bag, snap, pc2):
+        if os.path.exists(f):
+            os.unlink(f)
+    _, make_s = _cli("make-bag", bag, "--pings", str(CLI_PINGS))
+    out, map_s = _cli("map-bag", bag, "--offline", "--window", "16",
+                      "--save-map", snap, "--save-cloud", pc2)
+    summary = json.loads(out.splitlines()[-1])
+    images, positions, quats, _ = load_bag_sequence(bag)
+    (st, _), warm_s = _wall(lambda: map_ping_sequence(
+        images, positions, quats, MapperConfig(), device=dev,
+        dtype=torch.float32, window=16))
+    if (summary["pairs"] != CLI_PINGS or summary["num_voxels"] != int(st.used)
+            or summary["device"] != str(dev)
+            or summary["bin_apply_launches"] == 0):
+        raise AssertionError(f"map-bag summary {summary} against "
+                             f"{int(st.used)} voxels in-process on {dev}")
+    xyzi = np.fromfile(pc2, "<f4").reshape(-1, 4)
+    x, y, z, p = (float(v) for v in xyzi[len(xyzi) // 2])
+    out, query_s = _cli("query", snap, "--", f"{x},{y},{z}",
+                        "1000.0,1000.0,1000.0")
+    rows = [json.loads(ln) for ln in out.splitlines()]
+    if abs(rows[0]["probability"] - p) > 1e-6 or rows[1]["probability"] != 0.5:
+        raise AssertionError(f"query answered {rows}, cloud says {p} and 0.5")
+    print(
+        f"phase 5d CLI: make-bag {CLI_PINGS} pings of 500x512 {make_s:.1f} s; "
+        f"map-bag --offline --window 16: {summary['num_voxels']} voxels "
+        f"(equal in-process, where the same map takes {warm_s:.3f} s warm), "
+        f"{len(xyzi)} cloud points, load "
+        f"{summary['load_time']:.3f} s, map {summary['map_time']:.3f} s, "
+        f"{summary['pings_per_sec']:.1f} pings/s, realtime factor "
+        f"{summary['realtime_factor']:.1f}, {summary['bin_apply_launches']} "
+        f"bin_apply launches, process {map_s:.1f} s; query {query_s:.1f} s "
+        f"(p={rows[0]['probability']:.6f} at a cloud point, 0.5 far off); "
+        f"every exit code 0 [{smi}]",
+        flush=True,
+    )
+    return summary["bin_apply_launches"], dict(
+        {k: summary[k] for k in ("map_time", "load_time", "pings_per_sec",
+                                 "realtime_factor")},
+        make_bag_s=make_s, map_bag_process_s=map_s, query_process_s=query_s,
+        in_process_warm_map_s=warm_s)
+
+
+def phase_entry_points(dev, smi, main_voxels):
+    """Phase 5.  Returns ({path: K1 launches}, measured entry-point
+    numbers)."""
+    t0 = time.perf_counter()
+    ping_launches, ping_ms = _entry_selftest(dev, smi)
+    seq_launches, reads = _entry_sequence_and_reads(dev, smi, main_voxels)
+    cli_launches, cli = _entry_cli(dev, smi)
+    print(f"phase 5 entry points: {time.perf_counter() - t0:.1f} s [{smi}]",
+          flush=True)
+    return (
+        {"mapper.process_sonar_image": ping_launches,
+         "mapper.map_sequence": seq_launches, "cli map-bag": cli_launches},
+        dict(reads, process_sonar_image_ms=ping_ms, cli_map_bag=cli),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -841,28 +1158,36 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    dev = phase_build()
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+
+    dev, smi = phase_build()
     k1_launches, k1_shape, k1_real, *dedup = phase_main_path(dev, "pallas")
     raw_launches, raw_shape, raw_real, *raw = phase_main_path(
         dev, "pallas-raw")
     check_raw_equals_dedup(dedup, raw)
+    main_voxels = touched_voxels_brick(dedup[0])
     del dedup, raw
     k1 = _k1_form(dev, k1_shape, k1_real, raw=False)
     k1_raw = _k1_form(dev, raw_shape, raw_real, raw=True)
     del k1_real, raw_real
     k2 = phase_k2(dev)
     phase_cross_check(dev)
+    entry_launches, entry = phase_entry_points(dev, smi, main_voxels)
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
     # launches: the warm main-path run's (K2 has no product path; the
-    # launches of its chains are listed apart)
+    # launches of its chains are listed apart); by_path: each path's own
     rows = [
-        ("bin_apply", bin_src, bin_tpu, k1_launches, k1),
-        ("bin_apply_raw", bin_src, bin_tpu, raw_launches, k1_raw),
+        ("bin_apply", bin_src, bin_tpu, k1_launches,
+         dict(main=k1_launches, **entry_launches), dict(k1, entry_points=entry)),
+        ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
+         {"main (pallas-raw)": raw_launches}, k1_raw),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",
-         "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, k2),
+         "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, {}, k2),
     ]
     print(json.dumps({"kernels": [dict(
         name=name,
@@ -870,9 +1195,12 @@ def main() -> int:
         source=source,
         replaces=replaces,
         launches=launches,
+        paths=[p for p, n in by_path.items() if n],
+        launches_by_path=by_path,
         library_ms=None,  # no single PyTorch call computes the function
         **fields,
-    ) for name, source, replaces, launches, fields in rows]}), flush=True)
+    ) for name, source, replaces, launches, by_path, fields in rows]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,297 @@
+"""Command-line interface of the PyTorch port (the offline half of
+``sonar_3d_reconstruction_tpu.cli``).
+
+  python -m sonar_3d_reconstruction_tpu_torch selftest [--device D]
+      The reference library self-test scenario (scripts/3d_mapper.py:653-683):
+      synthetic two-rectangle 500x512 image, 3 frames stepping x by 0.1 m.
+
+  python -m sonar_3d_reconstruction_tpu_torch make-bag OUT.db3 [--pings N]
+      Write a synthetic KIRO-style recording (.db3, or .mcap by extension).
+      NumPy only: it makes no tensors and takes no device.
+
+  python -m sonar_3d_reconstruction_tpu_torch map-bag BAG --offline
+      [--config YAML] [--param K=V] [--window W] [--save-map OUT.npz]
+      [--save-cloud OUT.pc2] [--device D]
+      Decode and pair the whole bag, then map it in windows of W pings
+      (pipeline.map_ping_sequence, brick backend); prints one JSON line
+      (pairs, voxels, load and map seconds, pings/s, realtime factor, the
+      device and the binning kernel's launches).
+      The streaming path (without --offline) is not ported yet.
+
+  python -m sonar_3d_reconstruction_tpu_torch query MAP.npz X,Y,Z [...]
+      [--device D]
+      Occupancy probability at world points from a saved snapshot
+      (reference SimpleOctree.get_probability: never-updated voxels 0.5).
+
+Commands that map or query run on ``--device``: the first CUDA device by
+default, which they require (exit code 1 without one); ``--device cpu``
+runs them on the CPU.  Config layering: --param overrides > --config YAML >
+library defaults.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def _parse_overrides(pairs: List[str]) -> Dict:
+    out: Dict = {}
+    for p in pairs:
+        if "=" not in p:
+            raise SystemExit(f"--param expects key=value, got {p!r}")
+        k, v = p.split("=", 1)
+        try:
+            out[k] = json.loads(v)
+        except json.JSONDecodeError:
+            out[k] = v
+    return out
+
+
+def _device(args: argparse.Namespace):
+    """The command's device: ``--device``, else the first CUDA device
+    (SystemExit without one)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.device import require_cuda
+
+    if args.device is not None:
+        return torch.empty(0, device=args.device).device
+    try:
+        return require_cuda()
+    except RuntimeError as e:
+        raise SystemExit(f"{e}; pass --device cpu to run on the CPU") from e
+
+
+def cmd_selftest(args: argparse.Namespace) -> int:
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+
+    mapper = SonarMapper(
+        {
+            "voxel_resolution": 0.1,
+            "min_probability": 0.6,
+            "intensity_threshold": 30,
+        },
+        device=_device(args),
+    )
+    for stats in selftest_pings(mapper):
+        print(
+            f"frame {stats['frame_count']}: occupied={stats['num_occupied']} "
+            f"free={stats['num_free']} voxels={stats['num_voxels']} "
+            f"({stats['processing_time'] * 1e3:.1f} ms)"
+        )
+    cloud = mapper.get_point_cloud()
+    print(
+        f"final map: {cloud['num_occupied']} occupied of "
+        f"{cloud['num_voxels']} voxels on {mapper.device}"
+    )
+    return 0
+
+
+def selftest_pings(mapper):
+    """Feed ``mapper`` the reference self-test's three pings (500x512
+    image with two bright rectangles, x stepping 0.1 m, identity
+    orientation); yields each ping's stats."""
+    img = np.zeros((500, 512), np.uint8)
+    img[100:150, 200:300] = 100   # bright regions (reference :667-669)
+    img[300:350, 100:150] = 150
+    for i in range(3):
+        yield mapper.process_sonar_image(
+            img, [i * 0.1, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]
+        )
+
+
+def cmd_map_bag(args: argparse.Namespace) -> int:
+    if not args.offline:
+        print(
+            "map-bag: the streaming runtime is not ported yet (ROADMAP item "
+            "13); pass --offline",
+            file=sys.stderr,
+        )
+        return 2
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import load_config
+    from sonar_3d_reconstruction_tpu_torch.io.bag import load_bag_sequence
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    device = _device(args)
+    cfg, stream_cfg = load_config(args.config, _parse_overrides(args.param))
+    t0 = time.perf_counter()
+    images, positions, quats, stamps = load_bag_sequence(
+        args.bag,
+        sonar_topic=stream_cfg.sonar_topic,
+        odometry_topic=stream_cfg.odometry_topic,
+        slop=stream_cfg.sync_slop,
+    )
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k1_before = bin_apply.launches
+    state, _ = map_ping_sequence(
+        images, positions, quats, cfg, device=device, dtype=torch.float32,
+        window=args.window, backend=args.backend,
+    )
+    num_voxels = int(state.used)  # waits for the device
+    t_map = time.perf_counter() - t0
+    n = len(images)
+    span = float(stamps[-1] - stamps[0]) if n > 1 else 0.0
+    print(
+        json.dumps(
+            {
+                "pairs": n,
+                "num_voxels": num_voxels,
+                "load_time": t_load,
+                "map_time": t_map,
+                "pings_per_sec": n / t_map if t_map else 0.0,
+                "realtime_factor": span / t_map if t_map else 0.0,
+                "device": str(device),
+                # the binning kernel's launches (0 on the CPU, which runs
+                # its plain version)
+                "bin_apply_launches": bin_apply.launches - k1_before,
+            }
+        )
+    )
+    if args.save_map:
+        from sonar_3d_reconstruction_tpu_torch.io.checkpoint import save_map
+
+        save_map(args.save_map, state, cfg)
+    if args.save_cloud:
+        from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+            extract_occupied_brick,
+        )
+        from sonar_3d_reconstruction_tpu_torch.io.pointcloud import (
+            serialize_pointcloud2,
+        )
+
+        pts, probs = extract_occupied_brick(state, cfg)
+        with open(args.save_cloud, "wb") as f:
+            f.write(serialize_pointcloud2(pts, probs)["data"])
+    return 0
+
+
+def cmd_make_bag(args: argparse.Namespace) -> int:
+    from sonar_3d_reconstruction_tpu_torch.io.bag import write_synthetic_bag
+
+    rng = np.random.default_rng(args.seed)
+    n, R, B = args.pings, args.range_bins, args.bearing_bins
+    images = rng.integers(0, 25, size=(n, R, B)).astype(np.uint8)
+    for i in range(n):
+        r0 = int(R * 0.3) + int(R * 0.08 * np.sin(i / 7.0))
+        images[i, r0 : r0 + int(R * 0.08), :] = rng.integers(
+            80, 220, size=(int(R * 0.08), B)
+        ).astype(np.uint8)
+    positions = np.stack(
+        [0.08 * np.arange(n), np.zeros(n), np.zeros(n)], axis=-1
+    )
+    yaw = 0.02 * np.arange(n)
+    quats = np.stack(
+        [np.zeros(n), np.zeros(n), np.sin(yaw / 2), np.cos(yaw / 2)], axis=-1
+    )
+    write_synthetic_bag(args.out, images, positions, quats, rate_hz=args.rate)
+    print(f"synthetic bag: {n} pings ({R}x{B}) -> {args.out}")
+    return 0
+
+
+def cmd_query(args: argparse.Namespace) -> int:
+    """Point-query a saved map snapshot (reference SimpleOctree
+    get_probability semantics: never-updated voxels answer p=0.5)."""
+    rows = []
+    for p in args.points:
+        parts = p.split(",")
+        if len(parts) != 3:
+            print(f"point {p!r}: expected X,Y,Z", file=sys.stderr)
+            return 2
+        try:
+            rows.append([float(v) for v in parts])
+        except ValueError:
+            print(f"point {p!r}: coordinates must be numbers", file=sys.stderr)
+            return 2
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        query_probability_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import load_map_brick
+
+    state, cfg = load_map_brick(args.map, device=_device(args))
+    pts = np.asarray(rows, np.float64)
+    probs = query_probability_brick(state, pts, cfg)
+    for p, pr in zip(pts, probs):
+        print(json.dumps({"point": list(p), "probability": float(pr)}))
+    return 0
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--device", default=None, metavar="DEVICE",
+        help="torch device to run on (default: the first CUDA device, "
+        "required; 'cpu' runs on the CPU)",
+    )
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="sonar_3d_reconstruction_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("selftest", help="reference __main__ scenario")
+    _add_device(p)
+
+    p = sub.add_parser("map-bag", help="rosbag2 / mcap replay -> map")
+    p.add_argument("bag")
+    p.add_argument("--config", default=None, help="reference-schema YAML")
+    p.add_argument(
+        "--param", action="append", default=[], metavar="KEY=VALUE",
+        help="config override (highest priority), repeatable",
+    )
+    p.add_argument(
+        "--backend", choices=("brick",), default="brick",
+        help="map backend (only the brick table is ported)",
+    )
+    p.add_argument(
+        "--offline", action="store_true",
+        help="batch path: decode the whole bag, then map it (required: the "
+        "streaming path is not ported yet)",
+    )
+    p.add_argument(
+        "--window", type=int, default=8,
+        help="pings per window of the batched apply; 1 = per-ping",
+    )
+    p.add_argument("--save-map", default=None, metavar="OUT.npz")
+    p.add_argument("--save-cloud", default=None, metavar="OUT.pc2")
+    _add_device(p)
+
+    p = sub.add_parser(
+        "query", help="occupancy probability at world points from a saved map"
+    )
+    p.add_argument("map", help=".npz snapshot from map-bag --save-map")
+    p.add_argument(
+        "points", nargs="+", metavar="X,Y,Z", help="query points (repeatable)"
+    )
+    _add_device(p)
+
+    p = sub.add_parser("make-bag", help="generate a synthetic recording")
+    p.add_argument("out")
+    p.add_argument("--pings", type=int, default=60)
+    p.add_argument("--range-bins", type=int, default=500)
+    p.add_argument("--bearing-bins", type=int, default=512)
+    p.add_argument("--rate", type=float, default=2.0)
+    p.add_argument("--seed", type=int, default=0)
+
+    args = parser.parse_args(argv)
+    return {
+        "selftest": cmd_selftest,
+        "map-bag": cmd_map_bag,
+        "make-bag": cmd_make_bag,
+        "query": cmd_query,
+    }[args.cmd](args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

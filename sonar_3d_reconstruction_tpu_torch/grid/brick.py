@@ -38,7 +38,7 @@ new tensors and never writes into the state it was given.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -340,11 +340,10 @@ def rehash_bricks(state: BrickGridState, new_capacity: int) -> BrickGridState:
     )
 
 
-def _brick_voxel_points(
-    hi: np.ndarray, lo: np.ndarray, vol: int, brick_bits: int,
-    resolution: float,
+def _brick_voxel_keys(
+    hi: np.ndarray, lo: np.ndarray, vol: int, brick_bits: int
 ) -> np.ndarray:
-    """(N,) brick codes -> (N, vol, 3) float64 voxel centers."""
+    """(N,) brick codes -> (N, vol, 3) int64 voxel keys, offset order."""
     base = unpack_brick_keys(
         torch.as_tensor(hi), torch.as_tensor(lo), brick_bits
     ).numpy()
@@ -354,8 +353,30 @@ def _brick_voxel_points(
         [off >> (2 * brick_bits), (off >> brick_bits) & (b - 1), off & (b - 1)],
         axis=-1,
     )
-    keys = base[:, None, :] + offs[None, :, :]
+    return base[:, None, :] + offs[None, :, :]
+
+
+def _brick_voxel_points(
+    hi: np.ndarray, lo: np.ndarray, vol: int, brick_bits: int,
+    resolution: float,
+) -> np.ndarray:
+    """(N,) brick codes -> (N, vol, 3) float64 voxel centers."""
+    keys = _brick_voxel_keys(hi, lo, vol, brick_bits)
     return (keys.astype(np.float64) + 0.5) * resolution
+
+
+def _pull_bricks(state: BrickGridState, sel: torch.Tensor):
+    """Host (hi, lo, rows, touched (N, vol) bool) of the occupied bricks
+    where ``sel`` holds, bricks in ascending (hi, lo) code order (the JAX
+    package's canonical extraction order); rows keep the state's dtype."""
+    vol = state.brick_volume
+    idx = torch.nonzero(sel & (state.key_hi != EMPTY_HI)).squeeze(1)
+    hi = state.key_hi[idx].cpu().numpy()
+    lo = state.key_lo[idx].cpu().numpy()
+    order = np.lexsort((lo, hi))
+    rows = state.log_odds[idx].cpu().numpy()[order]
+    touched = _unpack_touched(state.touched[idx], vol).cpu().numpy()[order]
+    return hi[order], lo[order], rows, touched
 
 
 def extract_occupied_brick(
@@ -372,21 +393,149 @@ def extract_occupied_brick(
         torch.tensor(thr, dtype=dtype), torch.tensor(-float("inf"), dtype=dtype)
     ).to(state.log_odds.device)
     tbits = _unpack_touched(state.touched, vol)
-    sel = (tbits & (state.log_odds > t)).any(dim=1) & (state.key_hi != EMPTY_HI)
-    idx = torch.nonzero(sel).squeeze(1)
-    if idx.numel() == 0:
+    hi, lo, rows, touched = _pull_bricks(
+        state, (tbits & (state.log_odds > t)).any(dim=1)
+    )
+    if len(hi) == 0:
         return np.empty((0, 3)), np.empty((0,))
-    hi = state.key_hi[idx].cpu().numpy()
-    lo = state.key_lo[idx].cpu().numpy()
-    order = np.lexsort((lo, hi))
-    hi, lo = hi[order], lo[order]
-    rows = state.log_odds[idx].cpu().numpy()[order].astype(np.float64)
-    touched = _unpack_touched(state.touched[idx].cpu(), vol).numpy()[order]
+    rows = rows.astype(np.float64)
     mask = touched & (rows > thr)
     points = _brick_voxel_points(hi, lo, vol, state.brick_bits,
                                  cfg.voxel_resolution)[mask]
     probs = 1.0 / (1.0 + np.exp(-rows[mask]))
     return points.reshape(-1, 3), probs
+
+
+def extract_classified_brick(
+    state: BrickGridState, cfg: MapperConfig
+) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Every touched voxel by class, as the reference classifies them:
+    ``{"free" | "occupied" | "unknown": (points (N, 3), probabilities
+    (N,))}``, float64 on the host, in extraction order.  Free is below
+    p = 0.3, occupied above ``cfg.min_probability``, unknown between."""
+    vol = state.brick_volume
+    everything = torch.ones_like(state.key_hi, dtype=torch.bool)
+    hi, lo, rows, touched = _pull_bricks(state, everything)
+    if len(hi) == 0:
+        return {k: (np.empty((0, 3)), np.empty((0,)))
+                for k in ("free", "occupied", "unknown")}
+    free_thr = np.log(0.3 / 0.7)
+    occ_thr = np.log(cfg.min_probability / (1.0 - cfg.min_probability))
+    lo_v = rows.astype(np.float64)
+    points = _brick_voxel_points(hi, lo, vol, state.brick_bits,
+                                 cfg.voxel_resolution)
+    free_m = touched & (lo_v < free_thr)
+    occ_m = touched & ~free_m & (lo_v > occ_thr)
+    unk_m = touched & ~free_m & ~occ_m
+    return {
+        name: (points[m].reshape(-1, 3), 1.0 / (1.0 + np.exp(-lo_v[m])))
+        for name, m in (("free", free_m), ("occupied", occ_m),
+                        ("unknown", unk_m))
+    }
+
+
+def touched_voxels_brick(state: BrickGridState) -> Tuple[np.ndarray, np.ndarray]:
+    """((N, 3) int32 voxel keys, (N,) log-odds in the state's dtype) of
+    every touched voxel, in extraction order: the layout-independent view
+    that map snapshots store (io/checkpoint.py)."""
+    everything = torch.ones_like(state.key_hi, dtype=torch.bool)
+    hi, lo, rows, touched = _pull_bricks(state, everything)
+    keys = _brick_voxel_keys(hi, lo, state.brick_volume, state.brick_bits)
+    return keys[touched].astype(np.int32).reshape(-1, 3), rows[touched]
+
+
+def load_voxels_brick(
+    keys: np.ndarray,
+    log_odds: np.ndarray,
+    device,
+    capacity: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
+    brick_bits: int = DEFAULT_BRICK_BITS,
+) -> BrickGridState:
+    """A state on ``device`` holding the given voxels (the snapshot restore
+    path; bounds are left empty for the caller to set).  ``keys`` (N, 3)
+    must be distinct.  Bricks are inserted in the order of their first
+    voxel, and the capacity, unless given, is the least power of two from
+    1024 up that holds four slots per brick."""
+    keys = np.asarray(keys, np.int32).reshape(-1, 3)
+    n = len(keys)
+    o = 3 * brick_bits
+    vol = 1 << o
+    hi, lo, in_range = pack_brick_keys(torch.as_tensor(keys), brick_bits)
+    if not bool(in_range.all()):
+        raise ValueError("voxel keys outside the packable range")
+    b_lo = lo & (U32 ^ ((1 << (o + 4)) - 1))
+    offset = ((lo >> 4) & ((1 << o) - 1)).to(device)
+    # one insert per distinct brick, in the order of its first voxel
+    codes = (hi.numpy() << 32) | b_lo.numpy()
+    _, first, inverse = np.unique(codes, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    b_hi = hi[first[order]].to(device)
+    b_code = b_lo[first[order]].to(device)
+    if capacity is None:
+        capacity = 1 << 10
+        while capacity < 4 * max(1, len(first)):
+            capacity *= 2
+    new = torch.ones_like(b_hi, dtype=torch.bool)
+    while True:
+        key_rows = empty_key_rows(capacity, device)
+        bucket, _, _, fill = bucket_lookup(key_rows, b_hi, b_code)
+        plan = plan_insert(key_rows, b_hi, b_code, new, bucket, fill)
+        if not bool(plan.overflowed):
+            break
+        capacity *= 2
+    slot = plan.slots[torch.as_tensor(rank[inverse.reshape(-1)], device=device)]
+    state = init_brick_grid(capacity, dtype, device, brick_bits)
+    flat = slot * vol + offset
+    log = state.log_odds.reshape(-1).index_put(
+        (flat,), torch.as_tensor(np.asarray(log_odds), device=device).to(dtype)
+    )
+    mask = torch.zeros(capacity * vol, dtype=torch.bool, device=device)
+    mask[flat] = True
+    return state._replace(
+        key_rows=commit_insert(key_rows, plan),
+        log_odds=log.reshape(capacity, vol),
+        touched=_pack_touched(mask.reshape(capacity, vol)),
+        used=torch.tensor(n, dtype=torch.int64, device=device),
+    )
+
+
+def query_log_odds_brick(
+    state: BrickGridState, points, cfg: MapperConfig
+) -> np.ndarray:
+    """(N, 3) world points -> (N,) log-odds of their voxels on the host, in
+    the state's dtype; 0.0 where a voxel was never updated.  Points are
+    keyed in float64 on the host (the reference's world_to_key), then
+    looked up on the state's device."""
+    pts = np.asarray(points, np.float64).reshape(-1, 3)
+    keys = np.clip(
+        np.floor(pts / cfg.voxel_resolution), -(2**30), 2**30
+    ).astype(np.int32)
+    device = state.log_odds.device
+    bb = state.brick_bits
+    o = 3 * bb
+    hi, lo, in_range = pack_brick_keys(
+        torch.as_tensor(keys, device=device), bb
+    )
+    b_lo = lo & (U32 ^ ((1 << (o + 4)) - 1))
+    offset = (lo >> 4) & ((1 << o) - 1)
+    _, found, found_slot, _ = bucket_lookup(state.key_rows, hi, b_lo)
+    slot = torch.clamp(found_slot, max=state.capacity - 1)
+    vals = state.log_odds[slot, offset]
+    bit = (state.touched[slot, offset // 32] >> (offset % 32)) & 1
+    hit = found & in_range & (bit == 1)
+    return torch.where(hit, vals, torch.zeros_like(vals)).cpu().numpy()
+
+
+def query_probability_brick(
+    state: BrickGridState, points, cfg: MapperConfig
+) -> np.ndarray:
+    """(N, 3) world points -> (N,) float64 occupancy probabilities; 0.5
+    where a voxel was never updated."""
+    lo = query_log_odds_brick(state, points, cfg).astype(np.float64)
+    return 1.0 / (1.0 + np.exp(-lo))
 
 
 _STATE_FIELDS = BrickGridState._fields

@@ -1,0 +1,345 @@
+"""SonarMapper — the stateful reference-parity API (PyTorch port of
+``sonar_3d_reconstruction_tpu.models.mapper``, brick backend).
+
+Same surface as the reference ``SonarTo3DMapper`` (scripts/3d_mapper.py:
+197-650): ``process_sonar_image(polar_image, position, quaternion) ->
+stats`` and ``get_point_cloud(include_free) -> dict``, with the same result
+fields, over a brick map on one device (the first CUDA device unless the
+caller names another).
+
+Both ``process_sonar_image`` and ``map_sequence`` go through
+``pipeline.map_ping_sequence``, the compact box-key path with the binning
+kernel K1: a ping is a sequence of one, mapped with window 1 into this
+mapper's state.  (The JAX mapper's per-ping step takes the wide two-word
+key path, XLA scatter without a Pallas kernel; the port has no wide-key
+path, ROADMAP item 15.  The maps agree voxel for voxel; their table slots
+may not.)  Capacity growth and replay happen inside ``map_ping_sequence``,
+whose grown state this mapper keeps.
+
+Fan tables are built once per image geometry for the per-ping path
+(exact, uncapped, as the JAX mapper builds them); ``map_sequence`` lets
+``map_ping_sequence`` size its lattice caps for the batch.  The JAX
+mapper's sticky box-key bits and unique / brick budgets exist to avoid
+XLA recompiles; the port sizes every window from its counts, so it keeps
+none, and needs no ``compute_window_boxes(min_bits=)``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sonar_3d_reconstruction_tpu_torch.config import MapperConfig, config_from_dict
+from sonar_3d_reconstruction_tpu_torch.device import require_cuda
+from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
+from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+    extract_classified_brick,
+    extract_occupied_brick,
+    init_brick_grid,
+    query_log_odds_brick,
+    query_probability_brick,
+)
+from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+    FanTables,
+    build_fan_tables,
+)
+from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+    compute_window_boxes,
+    unpack_box_brick,
+)
+from sonar_3d_reconstruction_tpu_torch.ops.records import frame_records
+from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+# backends of the JAX mapper and the ROADMAP items that port them
+_NOT_PORTED = {"hash": 16, "dense": 17, "brick-sharded": 18}
+
+
+class SonarMapper:
+    """Stateful sonar-to-3D mapper (reference SonarTo3DMapper parity,
+    3d_mapper.py:197-650) over a brick map on ``device``: the first CUDA
+    device when None (RuntimeError where there is none)."""
+
+    def __init__(
+        self,
+        config: Optional[Any] = None,
+        *,
+        backend: str = "brick",
+        initial_capacity: int = 1 << 20,
+        dtype: torch.dtype = torch.float32,
+        track_update_counts: bool = False,
+        device=None,
+    ):
+        if config is None:
+            self.cfg = MapperConfig()
+        elif isinstance(config, MapperConfig):
+            self.cfg = config
+        else:  # dict in library-level units (reference 3d_mapper.py:252-254)
+            self.cfg = config_from_dict(config)
+        if backend in _NOT_PORTED:
+            raise ValueError(
+                f"backend {backend!r} is not ported yet (ROADMAP item "
+                f"{_NOT_PORTED[backend]}); use 'brick'"
+            )
+        if backend != "brick":
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
+        self.dtype = dtype
+        self.device = (require_cuda() if device is None
+                       else torch.empty(0, device=device).device)
+        # brick capacity counts BRICKS (~1/30 of voxels on real surveys);
+        # growth with replay is the safety net either way
+        self.state = init_brick_grid(
+            max(128, initial_capacity >> 4), dtype, self.device
+        )
+        self._tables: Optional[FanTables] = None
+        # optional per-voxel update-count histograms (reference debug stats,
+        # 3d_mapper.py:306-308, 549-551): candidate EMISSIONS per voxel, the
+        # count field of each frame's unique records.  frame_update_counts
+        # covers the most recent frame only (cleared per frame, :525).
+        self.track_update_counts = track_update_counts
+        self.voxel_update_counts: Dict[Tuple[int, int, int], int] = {}
+        self.frame_update_counts: Dict[Tuple[int, int, int], int] = {}
+        self.frame_count = 0
+        self.processed_frame_count = 0
+        self.last_processing_time = 0.0
+        self.total_processing_time = 0.0
+        self._last_stats: Dict[str, int] = {}
+
+    # ------------------------------------------------------------------
+    def _tables_for(self, shape: Tuple[int, int]) -> FanTables:
+        if self._tables is None or (
+            self._tables.range_bins, self._tables.bearing_bins
+        ) != tuple(shape):
+            self._tables = build_fan_tables(self.cfg, shape[0], shape[1])
+        return self._tables
+
+    def process_sonar_image(
+        self, polar_image: np.ndarray, robot_position, robot_orientation
+    ) -> Dict[str, Any]:
+        """One ping -> map update.  Mirrors reference process_sonar_image
+        (3d_mapper.py:485-595), stats dict fields included."""
+        t0 = time.time()
+        self.frame_count += 1
+        self.processed_frame_count += 1
+        images = np.asarray(polar_image)[None]
+        positions = np.asarray(robot_position, np.float64)[None]
+        quats = np.asarray(robot_orientation, np.float64)[None]
+        tables = self._tables_for(images.shape[1:])
+        self.state, stats = map_ping_sequence(
+            images, positions, quats, self.cfg, device=self.device,
+            state=self.state, dtype=self.dtype, window=1, tables=tables,
+        )
+        if self.track_update_counts:
+            self._record_update_counts(images, positions, quats, tables)
+        return self._finish_ping({k: v[0] for k, v in stats.items()}, t0)
+
+    def _finish_ping(self, stats, t0: float) -> Dict[str, Any]:
+        """The reference-schema per-ping result (3d_mapper.py:587-595)."""
+        out = {
+            k: int(v)
+            for k, v in stats.items()
+            if not (k == "overflowed" or k.endswith(("_overflow", "_fail")))
+        }
+        self.last_processing_time = time.time() - t0
+        self.total_processing_time += self.last_processing_time
+        self._last_stats = out
+        return {
+            "frame_count": self.frame_count,
+            "processed_count": self.processed_frame_count,
+            "num_occupied": out["num_occupied"],
+            "num_free": out["num_free"],
+            "num_voxels": self.num_voxels,
+            "processing_time": self.last_processing_time,
+            "avg_processing_time": self.total_processing_time
+            / max(1, self.processed_frame_count),
+        }
+
+    def map_sequence(
+        self, images, positions, quaternions, window: int = 1
+    ) -> Dict[str, np.ndarray]:
+        """Batch API: map a recorded sequence into this mapper's state
+        (``window`` pings per apply); returns per-ping stats arrays."""
+        t0 = time.time()
+        images = np.asarray(images)
+        n = images.shape[0]
+        self.state, stats = map_ping_sequence(
+            images, positions, quaternions, self.cfg, device=self.device,
+            state=self.state, dtype=self.dtype, window=window,
+        )
+        if self.track_update_counts and n:
+            self._record_update_counts(
+                images, positions, quaternions, self._tables_for(images.shape[1:])
+            )
+        self.frame_count += n
+        self.processed_frame_count += n
+        dt = time.time() - t0
+        self.last_processing_time = dt / max(1, n)
+        self.total_processing_time += dt
+        return stats
+
+    # ------------------------------------------------------------------
+    def _emission_counts(
+        self, images, positions, quaternions, tables: FanTables
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Per ping: ((n, 3) voxel keys, (n,) candidate emissions) of its
+        unique records, from the records recomputed alone (map-state
+        independent): box key -> brick corner + offset -> voxel key."""
+        cfg = self.cfg
+        bb = self.state.brick_bits
+        o = 3 * bb
+        b = (1 << bb) - 1
+        T = batched_sonar_to_world(positions, quaternions, cfg)
+        box_mins, box_bits = compute_window_boxes(
+            T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, 1, bb,
+            frame_bits=1,
+        )
+        for image, T_i, box_min in zip(images, T, box_mins):
+            box_min = torch.as_tensor(box_min, device=self.device)
+            rec, _ = frame_records(
+                torch.as_tensor(image, device=self.device),
+                torch.as_tensor(T_i, device=self.device).to(self.dtype),
+                tables, cfg, box_min, box_bits, bb, dtype=self.dtype,
+            )
+            valid = rec.valid
+            key = rec.key[valid]
+            off = key & ((1 << o) - 1)
+            offs = torch.stack([off >> (2 * bb), (off >> bb) & b, off & b], -1)
+            voxel = unpack_box_brick(key >> o, box_min, box_bits, bb) + offs
+            yield voxel.cpu().numpy(), (rec.payload[valid] >> 16).cpu().numpy()
+
+    def _record_update_counts(self, images, positions, quaternions, tables):
+        """Debug path (reference voxel_update_counts / frame_update_counts,
+        3d_mapper.py:306-308, 525, 549-551): count candidate EMISSIONS per
+        voxel, per frame and over the run.  Recomputes each frame's unique
+        records, so it roughly doubles the per-ping cost; opt-in like the
+        reference's debug prints."""
+        for keys, counts in self._emission_counts(
+            images, positions, quaternions, tables
+        ):
+            self.frame_update_counts = {}  # reset per frame (reference :525)
+            for k, c in zip(map(tuple, keys.tolist()), counts.tolist()):
+                self.frame_update_counts[k] = c
+                self.voxel_update_counts[k] = (
+                    self.voxel_update_counts.get(k, 0) + c
+                )
+
+    def update_count_histogram(self) -> Dict[int, int]:
+        """{emissions-per-voxel: number-of-voxels} (reference print :575-585)."""
+        hist: Dict[int, int] = {}
+        for c in self.voxel_update_counts.values():
+            hist[c] = hist.get(c, 0) + 1
+        return dict(sorted(hist.items()))
+
+    def frame_update_stats(self) -> Dict[str, float]:
+        """The reference's per-frame debug aggregates (3d_mapper.py:575-585):
+        max/avg emissions per touched voxel in the LAST frame, the running
+        max across all frames, and voxels with >10 emissions this frame.
+        Empty when nothing was tracked (the reference's ``if`` guard, :575)."""
+        if not self.frame_update_counts:
+            return {}
+        vals = self.frame_update_counts.values()
+        return {
+            "max_updates_frame": max(vals),
+            "avg_updates_frame": sum(vals) / len(vals),
+            "max_updates_total": max(self.voxel_update_counts.values()),
+            "voxels_over_10_frame": sum(1 for v in vals if v > 10),
+        }
+
+    def format_frame_update_stats(self) -> str:
+        """The reference's every-10-frames debug block (3d_mapper.py:579-585),
+        one string instead of prints."""
+        s = self.frame_update_stats()
+        if not s:
+            return ""
+        return (
+            f"[DEBUG] Frame {self.frame_count}:\n"
+            f"  Max updates in frame: {s['max_updates_frame']}\n"
+            f"  Avg updates in frame: {s['avg_updates_frame']:.1f}\n"
+            f"  Max total updates: {s['max_updates_total']}\n"
+            f"  Voxels with >10 updates in frame: {s['voxels_over_10_frame']}"
+        )
+
+    def format_update_histogram(self) -> str:
+        hist = self.update_count_histogram()
+        total = sum(hist.values())
+        lines = [f"voxel update counts over {self.frame_count} frames "
+                 f"({total} voxels):"]
+        for c, n in hist.items():
+            lines.append(f"  {c:4d} updates: {n} voxels")
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------------
+    @property
+    def num_voxels(self) -> int:
+        """Touched voxels in the map."""
+        return int(self.state.used)
+
+    def get_point_cloud(self, include_free: bool = False) -> Dict[str, Any]:
+        """Map extraction with the reference result schema
+        (3d_mapper.py:597-642)."""
+        cfg = self.cfg
+        if include_free:
+            cls = extract_classified_brick(self.state, cfg)
+            occupied, free, unknown = cls["occupied"], cls["free"], cls["unknown"]
+            bounds = (self.state.min_bounds.cpu().numpy(),
+                      self.state.max_bounds.cpu().numpy())
+            return {
+                "occupied": occupied,
+                "free": free,
+                "unknown": unknown,
+                "num_voxels": self.num_voxels,
+                "num_occupied": len(occupied[0]),
+                "num_free": len(free[0]),
+                "num_unknown": len(unknown[0]),
+                "frame_count": self.frame_count,
+                "processed_count": self.processed_frame_count,
+                "bounds": {
+                    "min": bounds[0] if cfg.dynamic_expansion else None,
+                    "max": bounds[1] if cfg.dynamic_expansion else None,
+                },
+            }
+        points, probs = extract_occupied_brick(self.state, cfg)
+        return {
+            "points": points,
+            "probabilities": probs,
+            "num_voxels": self.num_voxels,
+            "num_occupied": len(points),
+            "frame_count": self.frame_count,
+            "processed_count": self.processed_frame_count,
+        }
+
+    def query_probabilities(self, points) -> np.ndarray:
+        """Batched point query: (N, 3) world coords -> (N,) occupancy
+        probabilities; never-updated voxels answer 0.5 (the reference's
+        per-point SimpleOctree.get_probability, 3d_mapper.py:122-126)."""
+        return query_probability_brick(self.state, points, self.cfg)
+
+    def get_probability(self, x: float, y: float, z: float) -> float:
+        """Occupancy probability of the voxel containing (x, y, z)
+        (reference SimpleOctree.get_probability, 3d_mapper.py:122-126)."""
+        return float(self.query_probabilities([[x, y, z]])[0])
+
+    def get_log_odds(self, x: float, y: float, z: float) -> float:
+        """Log-odds of the voxel containing (x, y, z); 0.0 if never updated
+        (reference SimpleOctree.get_log_odds, 3d_mapper.py:117-120)."""
+        return float(query_log_odds_brick(self.state, [[x, y, z]], self.cfg)[0])
+
+    def clear(self) -> None:
+        """Alias of reset_map (reference SimpleOctree.clear,
+        3d_mapper.py:190-194)."""
+        self.reset_map()
+
+    def reset_map(self) -> None:
+        """Clear the map, keeping its grown capacity (reference reset_map,
+        3d_mapper.py:644-650)."""
+        self.state = init_brick_grid(
+            self.state.capacity, self.dtype, self.device, self.state.brick_bits
+        )
+        self.frame_count = 0
+        self.processed_frame_count = 0
+        self.total_processing_time = 0.0
+        self.voxel_update_counts.clear()
+        self.frame_update_counts.clear()

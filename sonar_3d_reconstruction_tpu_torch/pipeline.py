@@ -158,6 +158,7 @@ def map_ping_sequence(
     dtype: torch.dtype = torch.float32,
     window: int = 1,
     dense_mode: str = "pallas",
+    tables: Optional[FanTables] = None,
 ) -> Tuple[BrickGridState, Dict[str, np.ndarray]]:
     """Map a whole recorded ping sequence on ``device``: the first CUDA
     device when it is None (RuntimeError where there is none; pass "cpu"
@@ -170,7 +171,10 @@ def map_ping_sequence(
     backend over compact box keys is ported; a survey whose per-window
     extent needs wider keys raises ValueError.  ``dense_mode`` is
     ``"pallas"`` (per-ping dedup, unique records) or ``"pallas-raw"`` (raw
-    candidates summed by the kernel); both give the same map.
+    candidates summed by the kernel); both give the same map.  ``tables``
+    are the fan tables of the images' geometry (default: built with every
+    lattice cap sized for these images); a caller that maps many short
+    sequences of one geometry passes its own, so they are built once.
 
     Returns (final state, per-ping stats: ``num_occupied`` / ``num_free``
     unique voxels by type, ``num_candidates`` valid emissions,
@@ -195,7 +199,13 @@ def map_ping_sequence(
     if P == 0:
         return state, {k: np.zeros(0, dt) for k, dt in STAT_DTYPES.items()}
 
-    tables = resolve_capped_tables(images, cfg, R, B)
+    if tables is None:
+        tables = resolve_capped_tables(images, cfg, R, B)
+    elif (tables.range_bins, tables.bearing_bins) != (R, B):
+        raise ValueError(
+            f"fan tables are for {tables.range_bins}x{tables.bearing_bins} "
+            f"images, not {R}x{B}"
+        )
     T = batched_sonar_to_world(positions, quaternions, cfg)
     window = min(max(window, 1), P)
     boxes = compute_window_boxes(

@@ -323,6 +323,37 @@ def test_map_ping_sequence_rejects_what_it_does_not_map(small_cfg):
     assert int(st.used) == 0 and all(len(v) == 0 for v in stats.values())
 
 
+def test_map_ping_sequence_takes_the_callers_tables(small_cfg):
+    """Exact (uncapped) fan tables given by the caller map the same as the
+    capped tables built by default; tables of another geometry are
+    refused."""
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        build_fan_tables,
+    )
+
+    cfg = port_cfg(small_cfg)
+    images, positions, quats = make_seq(small_cfg, 4, seed=67)
+    exact = build_fan_tables(cfg, 100, 64)
+    assert exact is not resolve_capped_tables(images, cfg, 100, 64)
+    given, g_stats = pipeline.map_ping_sequence(
+        images, positions, quats, cfg, device="cpu", dtype=torch.float64,
+        window=2, tables=exact,
+    )
+    default, d_stats = pipeline.map_ping_sequence(
+        images, positions, quats, cfg, device="cpu", dtype=torch.float64,
+        window=2,
+    )
+    for k in pipeline.STAT_DTYPES:
+        np.testing.assert_array_equal(g_stats[k], d_stats[k], err_msg=k)
+    np.testing.assert_equal(brick_state_to_numpy(given),
+                            brick_state_to_numpy(default))
+    with pytest.raises(ValueError, match="100x48"):
+        pipeline.map_ping_sequence(
+            images, positions, quats, cfg, device="cpu",
+            tables=build_fan_tables(cfg, 100, 48),
+        )
+
+
 def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
     """With no device the map is made on the first CUDA device; without one
     that is a RuntimeError, never a quiet fall back to the CPU."""
@@ -343,7 +374,8 @@ def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
 
 
 def test_port_runs_with_jax_blocked():
-    """The port and its CPU path import neither jax nor the JAX package."""
+    """The port and its CPU path import neither jax nor the JAX package:
+    the main path, every module of the port, and the CLI's selftest."""
     code = textwrap.dedent("""
         import sys
         for name in list(sys.modules):
@@ -372,6 +404,19 @@ def test_port_runs_with_jax_blocked():
                                           window=2, dense_mode="pallas-raw")
         assert torch.equal(r_st.log_odds, st.log_odds)
         assert (r_stats["num_occupied"] == stats["num_occupied"]).all()
+        import runpy
+        from sonar_3d_reconstruction_tpu_torch import cli, config
+        from sonar_3d_reconstruction_tpu_torch.io import (
+            bag, checkpoint, image, mcap, native, pointcloud, timesync)
+        from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+        assert config.PRESETS and SonarMapper and image and pointcloud
+        assert timesync and mcap and native and bag and checkpoint and cli
+        sys.argv = ["sonar3d", "selftest", "--device", "cpu"]
+        try:
+            runpy.run_module("sonar_3d_reconstruction_tpu_torch",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
         loaded = [m for m in sys.modules if m.split(".")[0] in
                   ("jax", "jaxlib", "sonar_3d_reconstruction_tpu")
                   and sys.modules[m] is not None]
@@ -383,4 +428,5 @@ def test_port_runs_with_jax_blocked():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.startswith("ok")
+    assert "final map: 5710 occupied of 84325 voxels on cpu" in proc.stdout
+    assert proc.stdout.splitlines()[-1].startswith("ok")

@@ -10,6 +10,12 @@ import jax.numpy as jnp
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
 
+# One intra-op thread per test process.  The suite runs in several worker
+# processes at once (every worker imports this module while it collects),
+# and torch's default of a thread per core in each of them oversubscribed
+# the CPU: the port's tests ran about four times slower under xdist.
+torch.set_num_threads(1)
+
 DTYPES = [
     pytest.param(torch.float64, jnp.float64, id="f64"),
     pytest.param(torch.float32, jnp.float32, id="f32"),
