@@ -71,6 +71,28 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    K1 launches are counted on each of these paths (the counts set to 0
    just before a path and read just after; the CLI reports its own) and
    must be non-zero.
+6. the streaming runtime, the streaming CLI and the node, on the card:
+   a. phase 2's survey as ImageMsg/OdometryMsg pairs (stamps 1000 + 0.1 i)
+      through ``StreamingMapper(chunk_size=16, window=16)`` in both dense
+      modes: touched voxels and log-odds equal phase 2's map exactly;
+   b. ping-to-map latency: chunk = window = 1 over the first
+      LATENCY_PINGS pings back to back, twice; the warm pass's arrival ->
+      commit p50 / p95 / max per frame; its map against the same pings
+      mapped on the CPU (plain versions): voxel sets equal, log-odds
+      within F32_LOG_ODDS_TOL;
+   c. publish at 1 Hz of stream time: ms and bytes per tick; a final
+      tick byte-equal to the cloud computed on the host from phase 2's
+      map;
+   d. F64_PINGS pings in float64 on the card and on the CPU: per-ping
+      stats and voxel sets equal, log-odds within F64_TOL;
+   e. ``map-bag --chunk 16 --window 16 --publish --save-map`` in a
+      subprocess on step 5d's bag: its voxel count equals ``--offline``'s;
+   f. the ROS2 node under a minimal stub of the ROS modules
+      (``ros_stub``): NODE_PINGS pairs, one publish tick whose cloud equals
+      the mapper's extraction, one marker tick; the map lies on the card,
+      and its voxels are held against a CPU ``SonarMapper`` fed the same
+      pings as in step b.
+   Each path's K1 (or K1-raw) launches are counted as in phase 5.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -873,16 +895,19 @@ def _wall(fn):
     return out, time.perf_counter() - t0
 
 
-def _k1_launches_of(fn):
-    """(fn(), K1 launches while it ran): the counts set to 0 just before
-    and read just after; fails when K1 was not launched."""
+def _k1_launches_of(fn, raw=False, what=None):
+    """(fn(), launches of the K1 form ``raw`` while it ran): the counts set
+    to 0 just before and read just after; fails when it was not
+    launched."""
     from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
 
     _reset_counts()
     out = fn()
-    if bin_apply.launches == 0:
-        raise AssertionError(f"{fn.__name__} never launched bin_apply")
-    return out, bin_apply.launches
+    n = bin_apply.raw_launches if raw else bin_apply.launches
+    if n == 0:
+        raise AssertionError(f"{what or fn.__name__} never launched "
+                             f"{'bin_apply_raw' if raw else 'bin_apply'}")
+    return out, n
 
 
 def _without_times(stats):
@@ -1130,7 +1155,7 @@ def _entry_cli(dev, smi):
     )
     return summary["bin_apply_launches"], dict(
         {k: summary[k] for k in ("map_time", "load_time", "pings_per_sec",
-                                 "realtime_factor")},
+                                 "realtime_factor", "num_voxels")},
         make_bag_s=make_s, map_bag_process_s=map_s, query_process_s=query_s,
         in_process_warm_map_s=warm_s)
 
@@ -1149,6 +1174,570 @@ def phase_entry_points(dev, smi, main_voxels):
          "mapper.map_sequence": seq_launches, "cli map-bag": cli_launches},
         dict(reads, process_sonar_image_ms=ping_ms, cli_map_bag=cli),
     )
+
+
+STREAM_PINGS = 256    # phase 6a / 6c: phase 2's survey through the stream
+LATENCY_PINGS = 96    # phase 6b: chunk = window = 1, as bench.py measures it
+F64_PINGS = 16        # phase 6d: float64 on the card and the CPU
+F64_TOL = 1e-12       # log-odds bar of 6d (CUDA's exp is not the CPU's)
+F32_LOG_ODDS_TOL = 1e-5  # log-odds bar of float32 maps, card vs CPU (6b, 6f)
+NODE_PINGS = 16       # phase 6f: pairs delivered to the node
+
+
+def _survey_msgs(n):
+    """The first n pings of phase 2's survey as (ImageMsg, OdometryMsg)
+    pairs stamped 1000.0 + 0.1 i."""
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.io.bag import ImageMsg, OdometryMsg
+
+    images, positions, quats = make_inputs(MapperConfig(), n)
+    h, w = images.shape[1:]
+    return [(ImageMsg(1000.0 + 0.1 * i, "sonar_link", h, w, "mono8", False, w,
+                      images[i].tobytes()),
+             OdometryMsg(1000.0 + 0.1 * i, "camera_init", "body", positions[i],
+                         quats[i]))
+            for i in range(n)]
+
+
+def _msg_arrays(msgs):
+    """(images, positions, quats) of (ImageMsg, OdometryMsg) pairs."""
+    import numpy as np
+
+    return (np.stack([np.frombuffer(i.data, np.uint8).reshape(i.height,
+                                                              i.width)
+                      for i, _ in msgs]),
+            np.stack([o.position for _, o in msgs]),
+            np.stack([o.orientation for _, o in msgs]))
+
+
+def _same_map_as_cpu(state, cpu_state, what):
+    """A float32 map on the card against the same pings mapped on the CPU
+    (plain versions): voxel sets equal, log-odds within F32_LOG_ODDS_TOL.
+    Returns (voxels, max |diff|, bit-equal log-odds)."""
+    import numpy as np
+
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+
+    keys, lo = touched_voxels_brick(state)
+    c_keys, c_lo = touched_voxels_brick(cpu_state)
+    if not np.array_equal(keys, c_keys) or len(keys) == 0:
+        raise AssertionError(f"{what}: {len(keys)} voxels on the card, "
+                             f"{len(c_keys)} on the CPU, or the sets differ")
+    diff = float(np.abs(lo.astype(np.float64) - c_lo).max())
+    if diff > F32_LOG_ODDS_TOL:
+        raise AssertionError(f"{what}: log-odds differ from the CPU's by "
+                             f"{diff}")
+    return len(keys), diff, int((lo == c_lo).sum())
+
+
+def _stream(msgs, device, stream_cfg=None, **kw):
+    """A StreamingMapper at the library defaults fed ``msgs`` back to back
+    and finished."""
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.stream import StreamingMapper
+
+    sm = StreamingMapper(MapperConfig(), stream_cfg, device=device, **kw)
+    for img, odom in msgs:
+        sm.on_ping(img)
+        sm.on_pose(odom)
+    sm.finish()
+    return sm
+
+
+@contextlib.contextmanager
+def keep_stream_stats():
+    """While open, the stream's chunk engine also keeps each chunk's
+    per-ping stats in the list it yields."""
+    from sonar_3d_reconstruction_tpu_torch import stream
+
+    kept = []
+    fn = stream.map_ping_sequence
+
+    def wrapped(*args, **kw):
+        state, stats = fn(*args, **kw)
+        kept.append(stats)
+        return state, stats
+
+    stream.map_ping_sequence = wrapped
+    try:
+        yield kept
+    finally:
+        stream.map_ping_sequence = fn
+
+
+def _short(summary):
+    return {k: (round(v, 6) if isinstance(v, float) else v)
+            for k, v in summary.items()}
+
+
+def _stream_main(dev, smi, msgs, main_voxels):
+    """6a: the survey through the stream in both dense modes; returns
+    ({path: launches}, facts)."""
+    import numpy as np
+
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+
+    launches, facts = {}, {}
+    for mode, path in (("pallas", "stream (chunk 16)"),
+                       ("pallas-raw", "stream (pallas-raw)")):
+        raw = mode == "pallas-raw"
+        (sm, n), wall = _wall(lambda: _k1_launches_of(
+            lambda: _stream(msgs, dev, chunk_size=16, window=16,
+                            dense_mode=mode), raw=raw, what=path))
+        keys, log_odds = touched_voxels_brick(sm.state)
+        if not (np.array_equal(keys, main_voxels[0])
+                and np.array_equal(log_odds, main_voxels[1])):
+            raise AssertionError(f"{path}: the stream's map differs from "
+                                 f"phase 2's")
+        if (sm.stats.frames_mapped != len(msgs)
+                or sm.stats.chunks != -(-len(msgs) // 16)):
+            raise AssertionError(f"{path}: {sm.stats.summary()}")
+        launches[path] = n
+        facts[mode] = dict(wall_s=wall, pings_per_sec=len(msgs) / wall,
+                           summary=sm.stats.summary())
+        print(
+            f"phase 6a stream ({mode}): {len(msgs)} pings of 500x512 as "
+            f"ImageMsg/OdometryMsg pairs, chunk 16, window 16, float32: "
+            f"{len(keys)} touched voxels and their log-odds equal phase 2's "
+            f"map (tolerance 0); wall {wall:.3f} s, {len(msgs) / wall:.1f} "
+            f"pings/s, {'bin_apply_raw' if raw else 'bin_apply'} launches "
+            f"{n}; summary {json.dumps(_short(sm.stats.summary()))} [{smi}]",
+            flush=True,
+        )
+    return launches, facts
+
+
+def _stream_latency(dev, smi, msgs, ping_ms):
+    """6b: chunk = window = 1 over the first LATENCY_PINGS pings, twice;
+    the warm pass's map against the same pings mapped on the CPU.  Returns
+    (launches of the warm pass, its latency facts)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    msgs = msgs[:LATENCY_PINGS]
+    for _ in range(2):  # the second, warm pass is the one reported
+        (sm, n), wall = _wall(lambda: _k1_launches_of(
+            lambda: _stream(msgs, dev, chunk_size=1, window=1),
+            what="stream (chunk 1)"))
+    s = sm.stats.summary()
+    if sm.stats.frames_mapped != len(msgs) or len(sm.stats.latencies) != len(msgs):
+        raise AssertionError(f"stream (chunk 1): {s}")
+    t0 = time.perf_counter()
+    cpu, _ = map_ping_sequence(*_msg_arrays(msgs), MapperConfig(),
+                               device="cpu", dtype=torch.float32, window=16)
+    cpu_s = time.perf_counter() - t0
+    voxels, diff, n_exact = _same_map_as_cpu(sm.state, cpu, "stream (chunk 1)")
+    lat = dict(p50_ms=s["latency_p50_s"] * 1e3, p95_ms=s["latency_p95_s"] * 1e3,
+               max_ms=s["latency_max_s"] * 1e3, wall_s=wall,
+               pings_per_sec=len(msgs) / wall, voxels=voxels,
+               max_abs_diff_vs_cpu=diff, cpu_wall_s=cpu_s)
+    print(
+        f"phase 6b ping-to-map latency: {len(msgs)} pings back to back, "
+        f"chunk = window = 1, float32, warm pass: p50 {lat['p50_ms']:.2f} ms, "
+        f"p95 {lat['p95_ms']:.2f} ms, max {lat['max_ms']:.2f} ms (arrival to "
+        f"commit, per frame); {lat['pings_per_sec']:.1f} pings/s, {n} "
+        f"bin_apply launches; process_sonar_image median {ping_ms:.2f} ms "
+        f"(phase 5a); {voxels} voxels equal to the same pings mapped on the "
+        f"CPU (window 16, {cpu_s:.1f} s), log-odds max |diff| {diff:.3g} "
+        f"(tolerance {F32_LOG_ODDS_TOL}), {n_exact} bit-equal [{smi}]",
+        flush=True,
+    )
+    return n, lat
+
+
+def _stream_publish(dev, smi, msgs, main_voxels):
+    """6c: publish at 1 Hz of stream time; a final tick byte-equal to the
+    cloud computed on the host from phase 2's map (the stream maps the same
+    survey).  Returns facts."""
+    import numpy as np
+
+    from sonar_3d_reconstruction_tpu_torch.config import (
+        MapperConfig,
+        StreamConfig,
+    )
+    from sonar_3d_reconstruction_tpu_torch.io.pointcloud import (
+        serialize_pointcloud2,
+    )
+    from sonar_3d_reconstruction_tpu_torch.ops.logodds import (
+        probability_to_log_odds,
+    )
+    from sonar_3d_reconstruction_tpu_torch.stream import StreamingMapper
+
+    cfg, sent, ticks = MapperConfig(), [], []
+    sm = StreamingMapper(cfg, StreamConfig(publish_rate_hz=1.0), chunk_size=16,
+                         window=16, publish=sent.append, device=dev)
+    extract = sm.pointcloud_msg
+
+    def tick(stamp=0.0):
+        t0 = time.perf_counter()
+        msg = extract(stamp=stamp)
+        ticks.append(time.perf_counter() - t0)
+        return msg
+
+    sm.pointcloud_msg = tick
+    t0 = time.perf_counter()
+    for img, odom in msgs:
+        sm.on_ping(img)
+        sm.on_pose(odom)
+    sm.finish()
+    wall = time.perf_counter() - t0
+    last = sm.pointcloud_msg(stamp=2000.0)  # a final tick
+    keys, log_odds = main_voxels
+    lo = log_odds.astype(np.float64)
+    occ = lo > probability_to_log_odds(cfg.min_probability, cfg)
+    want = serialize_pointcloud2(
+        (keys[occ].astype(np.float64) + 0.5) * cfg.voxel_resolution,
+        1.0 / (1.0 + np.exp(-lo[occ])), frame_id=last["header"]["frame_id"],
+        stamp=(2000, 0))
+    if last != want or len(sent) < 3:
+        raise AssertionError(f"the final tick differs from phase 2's occupied "
+                             f"voxels ({last['width']} vs {want['width']} "
+                             f"points), or {len(sent)} messages")
+    widths = [m["width"] for m in sent + [last]]
+    facts = dict(ticks=len(ticks), median_tick_ms=float(np.median(ticks)) * 1e3,
+                 max_tick_ms=float(np.max(ticks)) * 1e3, wall_s=wall,
+                 bytes_per_tick_mean=16 * float(np.mean(widths)),
+                 bytes_last_tick=16 * widths[-1])
+    print(
+        f"phase 6c publish: {len(msgs)} pings, chunk 16, 1 Hz of stream "
+        f"time: {len(sent)} messages and a final tick, equal to phase 2's "
+        f"{last['width']} occupied voxels; median "
+        f"{facts['median_tick_ms']:.1f} ms per tick (max "
+        f"{facts['max_tick_ms']:.1f}); {facts['bytes_per_tick_mean']:.0f} "
+        f"bytes per tick on average, {facts['bytes_last_tick']} in the last; "
+        f"run wall {wall:.3f} s [{smi}]",
+        flush=True,
+    )
+    return facts
+
+
+def _stream_float64(dev, smi, msgs):
+    """6d: F64_PINGS pings in float64, chunk 8, on the card and the CPU:
+    per-ping stats equal, voxel sets equal, log-odds within F64_TOL."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        with keep_stream_stats() as kept:
+            sm, wall = _wall(lambda: _stream(
+                msgs[:F64_PINGS], device, chunk_size=8, window=8,
+                dtype=torch.float64))
+        stats = {k: np.concatenate([c[k] for c in kept]) for k in kept[0]}
+        out[name] = (stats, touched_voxels_brick(sm.state), wall)
+    (g_stats, (g_keys, g_lo), g_wall), (c_stats, (c_keys, c_lo), c_wall) = (
+        out["gpu"], out["cpu"])
+    for k in g_stats:
+        if not np.array_equal(g_stats[k], c_stats[k]):
+            raise AssertionError(f"float64 per-ping {k} differs, card vs CPU")
+    if not np.array_equal(g_keys, c_keys) or g_lo.dtype != np.float64:
+        raise AssertionError(f"float64 voxel sets differ: {len(g_keys)} on "
+                             f"the card, {len(c_keys)} on the CPU")
+    diff = float(np.abs(g_lo - c_lo).max())
+    if diff > F64_TOL:
+        raise AssertionError(f"float64 log-odds differ by {diff}")
+    n_exact = int((g_lo == c_lo).sum())
+    print(
+        f"phase 6d float64: {F64_PINGS} pings of 500x512, chunk 8, window 8, "
+        f"on the card and the CPU: per-ping {', '.join(g_stats)} equal, "
+        f"{len(g_keys)} voxels equal, log-odds max |diff| {diff:.3g} "
+        f"(tolerance {F64_TOL}), {n_exact} bit-equal; walls {g_wall:.3f} s "
+        f"card, {c_wall:.3f} s CPU [{smi}]",
+        flush=True,
+    )
+    return dict(voxels=len(g_keys), max_abs_diff=diff, bit_equal=n_exact,
+                card_wall_s=g_wall, cpu_wall_s=c_wall)
+
+
+def _stream_cli(dev, smi, offline_voxels):
+    """6e: map-bag without --offline on phase 5d's bag in a fresh process;
+    returns (its K1 launches, its summary)."""
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    bag, snap = (os.path.join(work, f) for f in ("cli.db3", "stream.npz"))
+    out, proc_s = _cli("map-bag", bag, "--chunk", "16", "--window", "16",
+                       "--publish", "--save-map", snap)
+    s = json.loads(out.splitlines()[-1])
+    if (s["num_voxels"] != offline_voxels or s["device"] != str(dev)
+            or s["bin_apply_launches"] == 0 or s["frames_mapped"] != CLI_PINGS
+            or s["publishes"] == 0 or not os.path.exists(snap)):
+        raise AssertionError(f"streaming map-bag summary {s} against "
+                             f"{offline_voxels} voxels offline on {dev}")
+    print(
+        f"phase 6e streaming CLI: map-bag --chunk 16 --window 16 --publish "
+        f"--save-map on the {CLI_PINGS}-ping bag: {s['num_voxels']} voxels "
+        f"(equal to map-bag --offline), {s['pings_per_sec']:.1f} pings/s "
+        f"(wall {s['wall_time']:.3f} s), latency p50 "
+        f"{s['latency_p50_s'] * 1e3:.1f} ms p95 {s['latency_p95_s'] * 1e3:.1f}"
+        f" ms, {s['publishes']} publishes ({s['publish_bytes']} bytes), "
+        f"{s['bin_apply_launches']} bin_apply launches, device {s['device']}, "
+        f"process {proc_s:.1f} s [{smi}]",
+        flush=True,
+    )
+    return s["bin_apply_launches"], dict(
+        {k: s[k] for k in ("wall_time", "pings_per_sec", "latency_p50_s",
+                           "latency_p95_s", "publishes", "publish_bytes",
+                           "num_voxels")}, process_s=proc_s)
+
+
+def ros_stub():
+    """Minimal rclpy / ROS message modules for the node: parameters with
+    overrides (``Node.overrides``), recording publishers, timers to fire by
+    hand, a fixed clock, and a two-topic synchronizer over the port's
+    ApproximateTimeSync.  Returns the modules to put in sys.modules."""
+    import types
+
+    from sonar_3d_reconstruction_tpu_torch.io.timesync import (
+        ApproximateTimeSync,
+    )
+
+    def bag(**kw):
+        return types.SimpleNamespace(**kw)
+
+    def stamp(sec=0, nanosec=0):
+        return bag(sec=sec, nanosec=nanosec)
+
+    class Msg:
+        def __init__(self, **kw):
+            self.header = bag(stamp=stamp(), frame_id="")
+            self.__dict__.update(kw)
+
+    class Marker(Msg):
+        def __init__(self):
+            super().__init__(scale=bag(), color=bag(), points=[])
+
+    class Publisher:
+        def __init__(self, topic):
+            self.topic, self.published = topic, []
+
+        def publish(self, msg):
+            self.published.append(msg)
+
+    class Logger:
+        def __init__(self):
+            self.records = []
+
+        def info(self, m):
+            self.records.append(("info", m))
+
+        def error(self, m):
+            self.records.append(("error", m))
+
+    class Node:
+        overrides = {}
+
+        def __init__(self, name):
+            self.params, self.publishers, self.timers = {}, [], []
+            self.logger = Logger()
+
+        def declare_parameter(self, name, default):
+            self.params[name] = bag(value=self.overrides.get(name, default))
+
+        def get_parameter(self, name):
+            return self.params[name]
+
+        def create_publisher(self, _type, topic, _depth):
+            self.publishers.append(Publisher(topic))
+            return self.publishers[-1]
+
+        def create_timer(self, period, callback):
+            self.timers.append(bag(period=period, fire=callback))
+
+        def get_logger(self):
+            return self.logger
+
+        def get_clock(self):
+            return bag(now=lambda: bag(to_msg=lambda: stamp(100, 0)))
+
+        def destroy_node(self):
+            pass
+
+    class Subscriber:
+        def __init__(self, _node, _type, topic, qos_profile=None):
+            self.topic = topic
+
+        def deliver(self, msg):
+            t = msg.header.stamp.sec + 1e-9 * msg.header.stamp.nanosec
+            self.add(msg, t)
+
+    class Synchronizer:
+        def __init__(self, subs, queue_size=10, slop=0.1):
+            self.subscribers = subs
+            self.sync = ApproximateTimeSync(lambda a, b: self.cb(a, b),
+                                            queue_size=queue_size, slop=slop)
+            subs[0].add, subs[1].add = self.sync.add_ping, self.sync.add_pose
+
+        def registerCallback(self, cb):
+            self.cb = cb
+
+    class Broadcaster:
+        def __init__(self, node):
+            self.sent = []
+
+        def sendTransform(self, t):
+            self.sent.append(t)
+
+    def mod(name, **attrs):
+        m = types.ModuleType(name)
+        m.__dict__.update(attrs)
+        return m
+
+    msg = dict(Image=Msg, PointCloud2=Msg, PointField=bag, Odometry=Msg,
+               Point=bag, TransformStamped=lambda: Msg(
+                   child_frame_id="", transform=bag(translation=bag(),
+                                                    rotation=bag())),
+               Marker=Marker, MarkerArray=lambda: bag(markers=[]))
+    policy = bag(BEST_EFFORT=1, KEEP_LAST=1)
+    return {
+        "rclpy": mod("rclpy", init=lambda args=None: None,
+                     spin=lambda node: None, shutdown=lambda: None),
+        "rclpy.node": mod("rclpy.node", Node=Node),
+        "rclpy.qos": mod("rclpy.qos", QoSProfile=bag, ReliabilityPolicy=policy,
+                         HistoryPolicy=policy),
+        "sensor_msgs": mod("sensor_msgs"),
+        "sensor_msgs.msg": mod("sensor_msgs.msg", **msg),
+        "nav_msgs": mod("nav_msgs"),
+        "nav_msgs.msg": mod("nav_msgs.msg", **msg),
+        "geometry_msgs": mod("geometry_msgs"),
+        "geometry_msgs.msg": mod("geometry_msgs.msg", **msg),
+        "visualization_msgs": mod("visualization_msgs"),
+        "visualization_msgs.msg": mod("visualization_msgs.msg", **msg),
+        "tf2_ros": mod("tf2_ros", StaticTransformBroadcaster=Broadcaster),
+        "message_filters": mod("message_filters", Subscriber=Subscriber,
+                               ApproximateTimeSynchronizer=Synchronizer),
+    }
+
+
+def _node(dev, smi, msgs):
+    """6f: the port's node under ros_stub(): NODE_PINGS full-size pairs,
+    the publish timer once with the cloud and once with the markers; its
+    map against a CPU SonarMapper fed the same pings.  Returns (its K1
+    launches, facts)."""
+    import importlib
+    import types
+
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+    from sonar_3d_reconstruction_tpu_torch.io.pointcloud import (
+        serialize_pointcloud2,
+    )
+
+    import sonar_3d_reconstruction_tpu_torch.node as node_mod
+
+    stub = ros_stub()
+    saved = {name: sys.modules.get(name) for name in stub}
+    sys.modules.update(stub)
+    try:
+        importlib.reload(node_mod)
+        if not node_mod._ROS2:
+            raise AssertionError("the node did not take the ROS stub")
+        stub["rclpy.node"].Node.overrides = {}  # the reference defaults
+        node = node_mod.SonarMapperNode()
+
+        def ros(img, odom):
+            def header(t):
+                return types.SimpleNamespace(stamp=types.SimpleNamespace(
+                    sec=int(t), nanosec=int(round((t % 1.0) * 1e9))))
+            i = types.SimpleNamespace(
+                header=header(img.stamp), height=img.height, width=img.width,
+                encoding=img.encoding, is_bigendian=img.is_bigendian,
+                step=img.step, data=img.data)
+            p, q = odom.position, odom.orientation
+            o = types.SimpleNamespace(
+                header=header(odom.stamp), pose=types.SimpleNamespace(
+                    pose=types.SimpleNamespace(
+                        position=types.SimpleNamespace(x=p[0], y=p[1], z=p[2]),
+                        orientation=types.SimpleNamespace(
+                            x=q[0], y=q[1], z=q[2], w=q[3]))))
+            return i, o
+
+        pairs = [ros(*m) for m in msgs[:NODE_PINGS]]
+        sonar_sub, odom_sub = node._sync.subscribers
+
+        def deliver():
+            for i, o in pairs:
+                sonar_sub.deliver(i)
+                odom_sub.deliver(o)
+            return node.mapper.frame_count
+
+        (frames, n), wall = _wall(lambda: _k1_launches_of(deliver,
+                                                          what="node"))
+        if frames != NODE_PINGS or node.mapper.state.log_odds.device != dev:
+            raise AssertionError(f"node mapped {frames} frames on "
+                                 f"{node.mapper.state.log_odds.device}")
+        cpu = SonarMapper(node.mapper.cfg, device="cpu")
+        for x in zip(*_msg_arrays(msgs[:NODE_PINGS])):
+            cpu.process_sonar_image(*x)
+        voxels, diff, n_exact = _same_map_as_cpu(node.mapper.state, cpu.state,
+                                                 "node")
+        pubs = {p.topic: p for p in node.publishers}
+        _, tick_s = _wall(node.timers[0].fire)
+        msg = pubs["/sonar_3d_map"].published[-1]
+        cloud = node.mapper.get_point_cloud()
+        want = serialize_pointcloud2(cloud["points"], cloud["probabilities"])
+        if msg.data != want["data"] or msg.width == 0:
+            raise AssertionError("the node's PointCloud2 differs from its "
+                                 "mapper's extraction")
+        node.show_free_space = True
+        _, marker_s = _wall(node.timers[0].fire)
+        markers = pubs["/sonar_3d_map_markers"].published[-1].markers
+        cls = node.mapper.get_point_cloud(include_free=True)
+        counts = {m.ns: len(m.points) for m in markers}
+        if counts != {f"sonar_3d_map_{k}": len(cls[k][0])
+                      for k in ("occupied", "free", "unknown")}:
+            raise AssertionError(f"marker counts {counts}")
+    finally:
+        for name, m in saved.items():
+            if m is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = m
+        importlib.reload(node_mod)
+    print(
+        f"phase 6f node: {NODE_PINGS} pairs of 500x512 through the ROS stub's "
+        f"synchronizer into SonarMapperNode at the reference defaults, map on "
+        f"{node.mapper.state.log_odds.device}: {n} bin_apply launches, "
+        f"{wall:.3f} s; {voxels} voxels equal to a CPU SonarMapper fed the "
+        f"same pings, log-odds max |diff| {diff:.3g} (tolerance "
+        f"{F32_LOG_ODDS_TOL}), {n_exact} bit-equal; publish tick "
+        f"{tick_s * 1e3:.1f} ms, "
+        f"{msg.width} points equal to the mapper's extraction; marker tick "
+        f"{marker_s * 1e3:.1f} ms ({counts}) [{smi}]",
+        flush=True,
+    )
+    return n, dict(ingest_s=wall, publish_tick_ms=tick_s * 1e3,
+                   marker_tick_ms=marker_s * 1e3, points=msg.width,
+                   voxels=voxels, max_abs_diff_vs_cpu=diff)
+
+
+def phase_stream(dev, smi, main_voxels, ping_ms, offline_voxels):
+    """Phase 6: the streaming runtime, the streaming CLI and the node.
+    Returns ({kernel: {path: launches}}, measured numbers)."""
+    t0 = time.perf_counter()
+    msgs = _survey_msgs(STREAM_PINGS)
+    launches, main = _stream_main(dev, smi, msgs, main_voxels)
+    launches["stream (chunk 1)"], latency = _stream_latency(dev, smi, msgs,
+                                                             ping_ms)
+    publish = _stream_publish(dev, smi, msgs, main_voxels)
+    f64 = _stream_float64(dev, smi, msgs)
+    launches["cli map-bag (stream)"], cli = _stream_cli(dev, smi,
+                                                        offline_voxels)
+    launches["node"], node = _node(dev, smi, msgs)
+    print(f"phase 6 stream and node: {time.perf_counter() - t0:.1f} s "
+          f"[{smi}]", flush=True)
+    raw = {"stream (pallas-raw)": launches.pop("stream (pallas-raw)")}
+    return {"bin_apply": launches, "bin_apply_raw": raw}, dict(
+        stream=main, latency_chunk1=latency, publish=publish, float64=f64,
+        cli_map_bag_stream=cli, node=node)
 
 
 def main() -> int:
@@ -1175,6 +1764,9 @@ def main() -> int:
     k2 = phase_k2(dev)
     phase_cross_check(dev)
     entry_launches, entry = phase_entry_points(dev, smi, main_voxels)
+    stream_launches, stream = phase_stream(
+        dev, smi, main_voxels, entry["process_sonar_image_ms"],
+        entry["cli_map_bag"]["num_voxels"])
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -1182,9 +1774,12 @@ def main() -> int:
     # launches of its chains are listed apart); by_path: each path's own
     rows = [
         ("bin_apply", bin_src, bin_tpu, k1_launches,
-         dict(main=k1_launches, **entry_launches), dict(k1, entry_points=entry)),
+         dict(main=k1_launches, **entry_launches,
+              **stream_launches["bin_apply"]),
+         dict(k1, entry_points=entry, stream=stream)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
-         {"main (pallas-raw)": raw_launches}, k1_raw),
+         {"main (pallas-raw)": raw_launches,
+          **stream_launches["bin_apply_raw"]}, k1_raw),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",
          "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, {}, k2),

@@ -1,5 +1,5 @@
-"""Command-line interface of the PyTorch port (the offline half of
-``sonar_3d_reconstruction_tpu.cli``).
+"""Command-line interface of the PyTorch port (port of
+``sonar_3d_reconstruction_tpu.cli`` without ``tune`` and ``bench``).
 
   python -m sonar_3d_reconstruction_tpu_torch selftest [--device D]
       The reference library self-test scenario (scripts/3d_mapper.py:653-683):
@@ -9,14 +9,22 @@
       Write a synthetic KIRO-style recording (.db3, or .mcap by extension).
       NumPy only: it makes no tensors and takes no device.
 
-  python -m sonar_3d_reconstruction_tpu_torch map-bag BAG --offline
-      [--config YAML] [--param K=V] [--window W] [--save-map OUT.npz]
-      [--save-cloud OUT.pc2] [--device D]
+  python -m sonar_3d_reconstruction_tpu_torch map-bag BAG [--chunk C]
+      [--publish] [--config YAML] [--param K=V] [--window W]
+      [--save-map OUT.npz] [--save-cloud OUT.pc2] [--device D]
+      Replay the bag through the streaming runtime (stream.StreamingMapper,
+      brick backend): pings are paired with odometry as they arrive and
+      mapped in chunks of C, windows of W; --publish attaches a counting
+      publish sink at the config's publish_rate_hz (stream time).  Prints
+      one JSON line: the stream's summary (counters, latency p50/p95/max),
+      wall time, pings/s, the publish counts, the map's voxels, the device
+      and the binning kernel's launches.
+
+  python -m sonar_3d_reconstruction_tpu_torch map-bag BAG --offline [...]
       Decode and pair the whole bag, then map it in windows of W pings
       (pipeline.map_ping_sequence, brick backend); prints one JSON line
       (pairs, voxels, load and map seconds, pings/s, realtime factor, the
       device and the binning kernel's launches).
-      The streaming path (without --offline) is not ported yet.
 
   python -m sonar_3d_reconstruction_tpu_torch query MAP.npz X,Y,Z [...]
       [--device D]
@@ -107,22 +115,65 @@ def selftest_pings(mapper):
 
 
 def cmd_map_bag(args: argparse.Namespace) -> int:
-    if not args.offline:
-        print(
-            "map-bag: the streaming runtime is not ported yet (ROADMAP item "
-            "13); pass --offline",
-            file=sys.stderr,
-        )
-        return 2
+    from sonar_3d_reconstruction_tpu_torch.config import load_config
+
+    device = _device(args)
+    cfg, stream_cfg = load_config(args.config, _parse_overrides(args.param))
+    if args.offline:
+        return _map_bag_offline(args, device, cfg, stream_cfg)
     import torch
 
-    from sonar_3d_reconstruction_tpu_torch.config import load_config
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.stream import StreamingMapper
+
+    published = {"n": 0, "points": 0, "bytes": 0}
+    pub_cb = None
+    if args.publish:
+        def pub_cb(msg):
+            published["n"] += 1
+            published["points"] = msg["width"]
+            published["bytes"] += len(msg["data"])
+
+    mapper = StreamingMapper(
+        cfg, stream_cfg, chunk_size=args.chunk, window=args.window,
+        dtype=torch.float32, publish=pub_cb, device=device,
+    )
+    k1_before = bin_apply.launches
+    t0 = time.perf_counter()
+    stats = mapper.run_bag(args.bag)
+    wall = time.perf_counter() - t0
+    s = stats.summary()
+    s["wall_time"] = wall
+    s["pings_per_sec"] = stats.frames_mapped / wall if wall else 0.0
+    if pub_cb is not None:
+        s["publishes"] = published["n"]
+        s["last_publish_points"] = published["points"]
+        s["publish_bytes"] = published["bytes"]
+    s["num_voxels"] = int(mapper.state.used)
+    s["device"] = str(device)
+    # the binning kernel's launches (0 on the CPU, which runs its plain
+    # version)
+    s["bin_apply_launches"] = bin_apply.launches - k1_before
+    print(json.dumps(s))
+    if args.save_map:
+        from sonar_3d_reconstruction_tpu_torch.io.checkpoint import save_map
+
+        save_map(args.save_map, mapper.state, cfg)
+    if args.save_cloud:
+        with open(args.save_cloud, "wb") as f:
+            f.write(mapper.pointcloud_msg()["data"])
+    return 0
+
+
+def _map_bag_offline(args, device, cfg, stream_cfg) -> int:
+    """Batch path: decode and pair the whole bag, then map it in windows
+    (pipeline.map_ping_sequence)."""
+    import torch
+
     from sonar_3d_reconstruction_tpu_torch.io.bag import load_bag_sequence
     from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
     from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
-    device = _device(args)
-    cfg, stream_cfg = load_config(args.config, _parse_overrides(args.param))
     t0 = time.perf_counter()
     images, positions, quats, stamps = load_bag_sequence(
         args.bag,
@@ -256,12 +307,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     p.add_argument(
         "--offline", action="store_true",
-        help="batch path: decode the whole bag, then map it (required: the "
-        "streaming path is not ported yet)",
+        help="batch path: decode the whole bag, then map it (fastest; no "
+        "streaming publish)",
+    )
+    p.add_argument(
+        "--chunk", type=int, default=32,
+        help="streaming path: pings per mapped chunk",
     )
     p.add_argument(
         "--window", type=int, default=8,
-        help="pings per window of the batched apply; 1 = per-ping",
+        help="pings per window of the batched apply (both paths); 1 = "
+        "per-ping",
+    )
+    p.add_argument(
+        "--publish", action="store_true",
+        help="streaming path: attach a counting publish sink at the "
+        "config's publish_rate_hz (the reference node's 10 Hz tick, "
+        "node:227-231); the summary then reports publishes / "
+        "last_publish_points / publish_bytes",
     )
     p.add_argument("--save-map", default=None, metavar="OUT.npz")
     p.add_argument("--save-cloud", default=None, metavar="OUT.pc2")

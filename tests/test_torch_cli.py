@@ -21,6 +21,14 @@ from sonar_3d_reconstruction_tpu import cli as j_cli  # noqa: E402
 from sonar_3d_reconstruction_tpu_torch import cli  # noqa: E402
 
 PROB_TOL = 1e-5
+# the JAX stream's summary keys, which a reader of either CLI's line can use
+STREAM_KEYS = {
+    "pings_in", "poses_in", "pairs", "frames_mapped", "decode_errors",
+    "dropped_unsynced", "chunks", "grows", "fan_cap_recompiles",
+    "window_cap_recompiles", "free_cap_recompiles", "box_bits_recompiles",
+    "device_time", "stamp_skew_sum", "avg_stamp_skew", "latency_p50_s",
+    "latency_p95_s", "latency_max_s", "wall_time", "pings_per_sec",
+}
 COMMON = ["--param", "max_range=5.0", "--param", "voxel_resolution=0.1",
           "--offline", "--window", "2"]
 
@@ -76,6 +84,48 @@ def test_offline_map_and_query_match_jax_cli(tmp_path, capsys, ext):
     assert [r["probability"] for r in j_rows] == [r["probability"] for r in rows]
 
 
+def test_streaming_map_bag_matches_jax_cli(tmp_path, capsys):
+    """map-bag without --offline: the port's stream and the JAX CLI's brick
+    stream count the same pairs, chunks and voxels, publish as often, and
+    save the same cloud; the port reports its device and K1 launches."""
+    bag = str(tmp_path / "survey.db3")
+    run(capsys, cli.main, "make-bag", bag, "--pings", "7", "--range-bins",
+        "60", "--bearing-bins", "48")
+    common = ["--param", "max_range=5.0", "--param", "voxel_resolution=0.1",
+              "--param", "publish_rate_hz=1.0", "--chunk", "3", "--window",
+              "3", "--publish"]
+    t_cloud, j_cloud = str(tmp_path / "t.pc2"), str(tmp_path / "j.pc2")
+    t_map = str(tmp_path / "t.npz")
+    got = json.loads(run(capsys, cli.main, "map-bag", bag, *common,
+                         "--device", "cpu", "--save-cloud", t_cloud,
+                         "--save-map", t_map).splitlines()[-1])
+    want = json.loads(run(capsys, j_cli.main, "map-bag", bag, *common,
+                          "--backend", "brick",
+                          "--save-cloud", j_cloud).splitlines()[-1])
+    assert want.keys() <= got.keys()
+    for k in ("pairs", "frames_mapped", "chunks", "decode_errors",
+              "dropped_unsynced", "publishes", "last_publish_points",
+              "publish_bytes"):
+        assert got[k] == want[k], k
+    assert (got["pairs"], got["chunks"]) == (7, 3) and got["publishes"] > 1
+    assert got["device"] == "cpu" and got["bin_apply_launches"] == 0
+    pts, probs = cloud(t_cloud)
+    j_pts, j_probs = cloud(j_cloud)
+    assert len(pts) >= got["last_publish_points"] > 0
+    np.testing.assert_array_equal(pts, j_pts)
+    np.testing.assert_allclose(probs, j_probs, rtol=0, atol=PROB_TOL)
+    # the snapshot holds the streamed map: the JAX CLI's offline count
+    off = json.loads(run(capsys, j_cli.main, "map-bag", bag, *COMMON,
+                         "--backend", "brick").splitlines()[-1])
+    lines = run(capsys, cli.main, "query", t_map, "--device", "cpu", "--",
+                ",".join(str(float(v)) for v in pts[0])).splitlines()
+    assert abs(json.loads(lines[0])["probability"] - probs[0]) < 1e-6
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import load_map_brick
+
+    state, _ = load_map_brick(t_map, device="cpu")
+    assert int(state.used) == got["num_voxels"] == off["num_voxels"] > 0
+
+
 def test_selftest_matches_jax_cli(capsys):
     """The reference self-test scenario (500x512, 3 pings) prints the same
     per-frame stats and final map as the JAX package's selftest."""
@@ -94,8 +144,11 @@ def test_commands_refuse_what_is_not_ported(tmp_path, capsys):
     bag = str(tmp_path / "s.db3")
     run(capsys, cli.main, "make-bag", bag, "--pings", "2", "--range-bins",
         "30", "--bearing-bins", "16")
-    assert cli.main(["map-bag", bag, "--device", "cpu"]) == 2
-    assert "ROADMAP item 13" in capsys.readouterr().err
+    # map-bag without --offline streams the bag and prints the summary
+    got = json.loads(run(capsys, cli.main, "map-bag", bag, "--device",
+                         "cpu").splitlines()[-1])
+    assert STREAM_KEYS <= got.keys()
+    assert (got["pairs"], got["frames_mapped"], got["chunks"]) == (2, 2, 1)
     with pytest.raises(SystemExit) as e:
         cli.main(["map-bag", bag, "--offline", "--backend", "hash"])
     assert e.value.code == 2
@@ -109,6 +162,7 @@ def test_commands_refuse_what_is_not_ported(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["selftest"],
     ["map-bag", "BAG", "--offline"],
+    ["map-bag", "BAG"],
     ["query", "MAP", "0,0,0"],
 ])
 def test_commands_need_the_card_unless_told(tmp_path, capsys, argv):

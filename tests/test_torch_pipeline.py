@@ -375,7 +375,9 @@ def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
 
 def test_port_runs_with_jax_blocked():
     """The port and its CPU path import neither jax nor the JAX package:
-    the main path, every module of the port, and the CLI's selftest."""
+    the main path, every module of the port (the stream, the node and the
+    debug overlay included), a stream over the same pings, and the CLI's
+    selftest."""
     code = textwrap.dedent("""
         import sys
         for name in list(sys.modules):
@@ -407,10 +409,23 @@ def test_port_runs_with_jax_blocked():
         import runpy
         from sonar_3d_reconstruction_tpu_torch import cli, config
         from sonar_3d_reconstruction_tpu_torch.io import (
-            bag, checkpoint, image, mcap, native, pointcloud, timesync)
+            bag, checkpoint, debugviz, image, mcap, native, pointcloud,
+            timesync)
         from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+        from sonar_3d_reconstruction_tpu_torch import node, stream
         assert config.PRESETS and SonarMapper and image and pointcloud
         assert timesync and mcap and native and bag and checkpoint and cli
+        assert debugviz and node._NODE_PARAM_DEFAULTS and stream
+        sm = stream.StreamingMapper(cfg, chunk_size=2, window=2,
+                                    device="cpu")
+        for i in range(3):
+            sm.on_ping(bag.ImageMsg(1.0 + i, "sonar_link", 60, 32, "mono8",
+                                    False, 32, images[i].tobytes()))
+            sm.on_pose(bag.OdometryMsg(1.0 + i, "map", "base", pos[i], q[i]))
+        sm.finish()
+        assert sm.stats.frames_mapped == 3
+        s_pts, s_probs = extract_occupied_brick(sm.state, cfg)
+        assert np.array_equal(s_pts, pts) and np.array_equal(s_probs, probs)
         sys.argv = ["sonar3d", "selftest", "--device", "cpu"]
         try:
             runpy.run_module("sonar_3d_reconstruction_tpu_torch",
