@@ -93,6 +93,27 @@ Phases (each prints its own line; any failure raises and exits non-zero):
       and its voxels are held against a CPU ``SonarMapper`` fed the same
       pings as in step b.
    Each path's K1 (or K1-raw) launches are counted as in phase 5.
+7. the hash backend and the wide key path, on the card:
+   a. phase 2's survey through ``map_ping_sequence(backend="hash",
+      window=16)`` twice (wall, pings/s, peak memory and rehash calls of
+      the second): per-ping stats equal to phase 2's, its voxels too, log-odds
+      within F32_LOG_ODDS_TOL (the count not bit-equal printed); then the
+      first HASH_W1_PINGS pings one by one (``update_hash_grid``) against
+      the brick map of the same pings;
+   b. the first WIDE_PINGS of those pings at max_range WIDE_RANGE, where
+      no window fits compact box keys, through the brick backend (two-word
+      brick codes, K1; its launches counted as in phase 5) and the hash
+      backend (its rehash calls counted): stats and
+      voxels equal; K1 against its plain version on the widest wide
+      window; WIDE_F64_PINGS pings in float64 on the card and the CPU,
+      voxels equal and log-odds within F64_TOL;
+   c. ENTRY_PINGS ``SonarMapper(backend="hash").process_sonar_image``
+      pings timed one by one; ``save_map`` -> ``load_map`` of 7a's map on
+      the card (voxels and log-odds bit-equal); ``map-bag --offline
+      --backend hash`` on step 5d's bag (voxels equal to the brick run's);
+   d. the survey through ``StreamingMapper(backend="hash")`` at chunk 16
+      (voxels and log-odds equal to 7a's map), and the node with
+      ``map_backend: "hash"`` (as 6f, against a CPU hash mapper).
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -298,6 +319,27 @@ def keep_widest_k1_call(raw):
         yield kept
     finally:
         setattr(brick, name, fn)
+
+
+@contextlib.contextmanager
+def count_rehashes():
+    """While open, ``map_ping_sequence``'s hash growth also counts its
+    calls (each one rehash and one replay, however many doublings it
+    takes) in the dict it yields (``n``)."""
+    from sonar_3d_reconstruction_tpu_torch import pipeline
+
+    count = {"n": 0}
+    fn = pipeline.rehash
+
+    def wrapped(*args, **kw):
+        count["n"] += 1
+        return fn(*args, **kw)
+
+    pipeline.rehash = wrapped
+    try:
+        yield count
+    finally:
+        pipeline.rehash = fn
 
 
 def _reset_counts():
@@ -1211,28 +1253,6 @@ def _msg_arrays(msgs):
             np.stack([o.orientation for _, o in msgs]))
 
 
-def _same_map_as_cpu(state, cpu_state, what):
-    """A float32 map on the card against the same pings mapped on the CPU
-    (plain versions): voxel sets equal, log-odds within F32_LOG_ODDS_TOL.
-    Returns (voxels, max |diff|, bit-equal log-odds)."""
-    import numpy as np
-
-    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
-        touched_voxels_brick,
-    )
-
-    keys, lo = touched_voxels_brick(state)
-    c_keys, c_lo = touched_voxels_brick(cpu_state)
-    if not np.array_equal(keys, c_keys) or len(keys) == 0:
-        raise AssertionError(f"{what}: {len(keys)} voxels on the card, "
-                             f"{len(c_keys)} on the CPU, or the sets differ")
-    diff = float(np.abs(lo.astype(np.float64) - c_lo).max())
-    if diff > F32_LOG_ODDS_TOL:
-        raise AssertionError(f"{what}: log-odds differ from the CPU's by "
-                             f"{diff}")
-    return len(keys), diff, int((lo == c_lo).sum())
-
-
 def _stream(msgs, device, stream_cfg=None, **kw):
     """A StreamingMapper at the library defaults fed ``msgs`` back to back
     and finished."""
@@ -1333,7 +1353,8 @@ def _stream_latency(dev, smi, msgs, ping_ms):
     cpu, _ = map_ping_sequence(*_msg_arrays(msgs), MapperConfig(),
                                device="cpu", dtype=torch.float32, window=16)
     cpu_s = time.perf_counter() - t0
-    voxels, diff, n_exact = _same_map_as_cpu(sm.state, cpu, "stream (chunk 1)")
+    voxels, diff, n_diff = _same_voxels(_touched(sm.state), _touched(cpu),
+                                        F32_LOG_ODDS_TOL, "stream (chunk 1)")
     lat = dict(p50_ms=s["latency_p50_s"] * 1e3, p95_ms=s["latency_p95_s"] * 1e3,
                max_ms=s["latency_max_s"] * 1e3, wall_s=wall,
                pings_per_sec=len(msgs) / wall, voxels=voxels,
@@ -1346,7 +1367,7 @@ def _stream_latency(dev, smi, msgs, ping_ms):
         f"bin_apply launches; process_sonar_image median {ping_ms:.2f} ms "
         f"(phase 5a); {voxels} voxels equal to the same pings mapped on the "
         f"CPU (window 16, {cpu_s:.1f} s), log-odds max |diff| {diff:.3g} "
-        f"(tolerance {F32_LOG_ODDS_TOL}), {n_exact} bit-equal [{smi}]",
+        f"(tolerance {F32_LOG_ODDS_TOL}), {voxels - n_diff} bit-equal [{smi}]",
         flush=True,
     )
     return n, lat
@@ -1618,11 +1639,13 @@ def ros_stub():
     }
 
 
-def _node(dev, smi, msgs):
-    """6f: the port's node under ros_stub(): NODE_PINGS full-size pairs,
-    the publish timer once with the cloud and once with the markers; its
-    map against a CPU SonarMapper fed the same pings.  Returns (its K1
-    launches, facts)."""
+def _node(dev, smi, msgs, backend="brick"):
+    """6f (and 7d with ``backend="hash"``): the port's node under
+    ros_stub() with that ``map_backend``: NODE_PINGS full-size pairs, the
+    publish timer once with the cloud and once with the markers; its map
+    against a CPU SonarMapper of the backend fed the same pings.  Returns
+    (its K1 launches, None on the hash map, which launches no kernel;
+    facts)."""
     import importlib
     import types
 
@@ -1640,7 +1663,8 @@ def _node(dev, smi, msgs):
         importlib.reload(node_mod)
         if not node_mod._ROS2:
             raise AssertionError("the node did not take the ROS stub")
-        stub["rclpy.node"].Node.overrides = {}  # the reference defaults
+        # the reference defaults but for the map backend
+        stub["rclpy.node"].Node.overrides = {"map_backend": backend}
         node = node_mod.SonarMapperNode()
 
         def ros(img, odom):
@@ -1669,16 +1693,21 @@ def _node(dev, smi, msgs):
                 odom_sub.deliver(o)
             return node.mapper.frame_count
 
-        (frames, n), wall = _wall(lambda: _k1_launches_of(deliver,
-                                                          what="node"))
-        if frames != NODE_PINGS or node.mapper.state.log_odds.device != dev:
+        if backend == "hash":
+            (frames, n), wall = _wall(lambda: (deliver(), None))
+        else:
+            (frames, n), wall = _wall(lambda: _k1_launches_of(deliver,
+                                                              what="node"))
+        if (frames != NODE_PINGS or node.mapper.state.log_odds.device != dev
+                or node.mapper.backend != backend):
             raise AssertionError(f"node mapped {frames} frames on "
                                  f"{node.mapper.state.log_odds.device}")
-        cpu = SonarMapper(node.mapper.cfg, device="cpu")
+        cpu = SonarMapper(node.mapper.cfg, backend=backend, device="cpu")
         for x in zip(*_msg_arrays(msgs[:NODE_PINGS])):
             cpu.process_sonar_image(*x)
-        voxels, diff, n_exact = _same_map_as_cpu(node.mapper.state, cpu.state,
-                                                 "node")
+        voxels, diff, n_diff = _same_voxels(_touched(node.mapper.state),
+                                            _touched(cpu.state),
+                                            F32_LOG_ODDS_TOL, "node")
         pubs = {p.topic: p for p in node.publishers}
         _, tick_s = _wall(node.timers[0].fire)
         msg = pubs["/sonar_3d_map"].published[-1]
@@ -1703,12 +1732,14 @@ def _node(dev, smi, msgs):
                 sys.modules[name] = m
         importlib.reload(node_mod)
     print(
-        f"phase 6f node: {NODE_PINGS} pairs of 500x512 through the ROS stub's "
-        f"synchronizer into SonarMapperNode at the reference defaults, map on "
-        f"{node.mapper.state.log_odds.device}: {n} bin_apply launches, "
-        f"{wall:.3f} s; {voxels} voxels equal to a CPU SonarMapper fed the "
-        f"same pings, log-odds max |diff| {diff:.3g} (tolerance "
-        f"{F32_LOG_ODDS_TOL}), {n_exact} bit-equal; publish tick "
+        f"phase {'7d' if backend == 'hash' else '6f'} node: {NODE_PINGS} "
+        f"pairs of 500x512 through the ROS stub's synchronizer into "
+        f"SonarMapperNode at the reference defaults, map_backend {backend!r},"
+        f" map on {node.mapper.state.log_odds.device}: {n or 0} bin_apply "
+        f"launches, {wall:.3f} s; {voxels} voxels equal to a CPU "
+        f"SonarMapper fed the same pings, log-odds max |diff| {diff:.3g} "
+        f"(tolerance "
+        f"{F32_LOG_ODDS_TOL}), {voxels - n_diff} bit-equal; publish tick "
         f"{tick_s * 1e3:.1f} ms, "
         f"{msg.width} points equal to the mapper's extraction; marker tick "
         f"{marker_s * 1e3:.1f} ms ({counts}) [{smi}]",
@@ -1740,6 +1771,314 @@ def phase_stream(dev, smi, main_voxels, ping_ms, offline_voxels):
         cli_map_bag_stream=cli, node=node)
 
 
+HASH_W1_PINGS = 32    # phase 7a: window 1 (update_hash_grid per ping)
+WIDE_RANGE = 30.0     # phase 7b: m; the survey's windows then need wide keys
+# phase 7b prefixes of the survey, cut for time (the widths stay): the
+# map at 30 m (10.7M voxels at 64 pings) is checked on the host, and the
+# float64 run on the CPU takes ~0.8 s a ping
+WIDE_PINGS = 64
+WIDE_F64_PINGS = 8
+
+
+def _by_key(voxels):
+    """(keys, log-odds) sorted by key (the two backends list their voxels
+    in different orders)."""
+    import numpy as np
+
+    keys, lo = voxels
+    order = np.lexsort(keys.T)
+    return keys[order], lo[order]
+
+
+def _touched(state):
+    """(keys, log-odds) of a brick or hash map's touched voxels, sorted by
+    key."""
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        BrickGridState,
+        touched_voxels_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.grid.hash import touched_voxels_hash
+
+    return _by_key((touched_voxels_brick if isinstance(state, BrickGridState)
+                    else touched_voxels_hash)(state))
+
+
+def _same_voxels(got, want, tol, what):
+    """Two (keys, log-odds) views, sorted by key, hold the same voxels with
+    log-odds within ``tol``; returns (voxels, max |diff|, log-odds not
+    bit-equal)."""
+    import numpy as np
+
+    (keys, lo), (w_keys, w_lo) = got, want
+    if len(keys) == 0 or not np.array_equal(keys, w_keys):
+        raise AssertionError(f"{what}: {len(keys)} voxels against "
+                             f"{len(w_keys)}, or the sets differ")
+    diff = np.abs(lo.astype(np.float64) - w_lo.astype(np.float64))
+    if diff.max() > tol:
+        raise AssertionError(f"{what}: log-odds differ by {diff.max()}")
+    return len(keys), float(diff.max()), int((lo != w_lo).sum())
+
+
+def _same_stats(got, want, what):
+    import numpy as np
+
+    for k in PING_STATS:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{what}: per-ping {k} differs")
+
+
+def _hash_main(dev, smi, main_voxels, main_stats):
+    """7a: the survey through the hash backend in windows of 16 (twice; the
+    second run is reported) and its first HASH_W1_PINGS pings one by one,
+    against the brick maps of the same pings.  Returns (the hash map,
+    facts)."""
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.pipeline import (
+        DEFAULT_HASH_CAPACITY,
+        map_ping_sequence,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, 256)
+
+    def run(n, window, backend="hash"):
+        return map_ping_sequence(images[:n], positions[:n], quats[:n], cfg,
+                                 device=dev, backend=backend, window=window,
+                                 dtype=torch.float32)
+
+    _, cold = _wall(lambda: run(256, 16))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with count_rehashes() as grown:
+        (st, stats), wall = _wall(lambda: run(256, 16))
+    peak = torch.cuda.max_memory_allocated(dev)
+    rehashes = grown["n"]
+    _same_stats(stats, main_stats, "hash window 16 vs phase 2")
+    voxels, diff, n_diff = _same_voxels(_touched(st), _by_key(main_voxels),
+                                        F32_LOG_ODDS_TOL,
+                                        "hash window 16 vs phase 2")
+    (w1, w1_stats), w1_s = _wall(lambda: run(HASH_W1_PINGS, 1))
+    b1, b1_stats = run(HASH_W1_PINGS, 16, backend="brick")
+    _same_stats(w1_stats, b1_stats, "hash window 1 vs brick")
+    w1_voxels, w1_diff, w1_n_diff = _same_voxels(
+        _touched(w1), _touched(b1), F32_LOG_ODDS_TOL, "hash window 1 vs brick")
+    facts = dict(wall_s=wall, cold_wall_s=cold, pings_per_sec=256 / wall,
+                 peak_mib=peak / 2**20, rehashes=rehashes,
+                 capacity=st.capacity, voxels=voxels, max_abs_diff=diff,
+                 not_bit_equal=n_diff, window1_s=w1_s,
+                 window1_pings_per_sec=HASH_W1_PINGS / w1_s,
+                 window1_not_bit_equal=w1_n_diff)
+    print(
+        f"phase 7a hash: 256 pings of 500x512, window 16, float32, through "
+        f"map_ping_sequence(backend=\"hash\"): per-ping "
+        f"{', '.join(PING_STATS)} and {voxels} voxels equal phase 2's brick "
+        f"map, log-odds max |diff| {diff:.3g} (tolerance {F32_LOG_ODDS_TOL}),"
+        f" {n_diff} not bit-equal; wall {wall:.3f} s (cold run {cold:.3f} "
+        f"s), {256 / wall:.1f} pings/s, peak memory {peak / 2**20:.1f} MiB, "
+        f"{rehashes} rehashes (with replay) from {DEFAULT_HASH_CAPACITY} to "
+        f"{st.capacity} slots.  Window 1 "
+        f"(update_hash_grid a ping) over {HASH_W1_PINGS} pings: {w1_s:.3f} s, "
+        f"{HASH_W1_PINGS / w1_s:.1f} pings/s, {w1_voxels} voxels equal the "
+        f"brick map of those pings, max |diff| {w1_diff:.3g}, {w1_n_diff} "
+        f"not bit-equal [{smi}]",
+        flush=True,
+    )
+    return st, facts
+
+
+def _wide_keys(dev, smi):
+    """7b: the survey's first WIDE_PINGS pings at WIDE_RANGE, where no
+    window fits box keys, through the brick backend (two-word codes, K1)
+    and the hash backend; K1 on the
+    widest wide window against its plain version; WIDE_F64_PINGS pings in
+    float64 on the card and the CPU.  Returns (K1 launches of the wide
+    path, facts)."""
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.geometry import (
+        batched_sonar_to_world,
+    )
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+    from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+        compute_window_boxes,
+    )
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    cfg = MapperConfig(max_range=WIDE_RANGE)
+    images, positions, quats = make_inputs(MapperConfig(), WIDE_PINGS)
+    T = batched_sonar_to_world(positions, quats, cfg)
+    if compute_window_boxes(T[:, :3, 3], cfg.max_range, cfg.voxel_resolution,
+                            16, 2, frame_bits=4) is not None:
+        raise AssertionError("the wide survey fits box keys")
+
+    def run(backend, device=dev, n=WIDE_PINGS, window=16,
+            dtype=torch.float32):
+        return map_ping_sequence(images[:n], positions[:n], quats[:n], cfg,
+                                 device=device, backend=backend,
+                                 window=window, dtype=dtype)
+
+    with keep_widest_k1_call(raw=False) as kept:
+        ((b_st, b_stats), launches), b_wall = _wall(lambda: _k1_launches_of(
+            lambda: run("brick"), what="wide keys (brick)"))
+    with count_rehashes() as grown:
+        (h_st, h_stats), h_wall = _wall(lambda: run("hash"))
+    _same_stats(b_stats, h_stats, "wide brick vs hash")
+    voxels, diff, n_diff = _same_voxels(_touched(b_st), _touched(h_st),
+                                        F32_LOG_ODDS_TOL, "wide brick vs hash")
+
+    kw = dict(B=16, vol=64, f_bits=4, o=6, cfg=cfg)
+    args = kept["args"]
+    for dtype in (torch.float32, torch.float64):
+        a = args[:3] + (args[3].to(dtype),)
+        got, want = k1.bin_apply(*a, **kw), k1.bin_apply_reference(*a, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"bin_apply != plain on the widest wide "
+                                 f"window ({dtype})")
+    k1_ms = _device_ms(lambda: k1.bin_apply(*args, **kw), "bin_apply_kernel")
+    k1_bound_ms = _bound_ms(k1_bytes(args, False, 16)[0])
+    nb, lanes = args[3].shape[0], args[0].shape[0]
+
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        (st, stats), s = _wall(lambda: run("brick", device, WIDE_F64_PINGS, 8,
+                                           torch.float64))
+        out[name] = (stats, _touched(st), s)
+    (g_stats, g_vox, g_s), (c_stats, c_vox, c_s) = out["gpu"], out["cpu"]
+    _same_stats(g_stats, c_stats, "wide float64 card vs CPU")
+    f64_voxels, f64_diff, f64_n_diff = _same_voxels(
+        g_vox, c_vox, F64_TOL, "wide float64 card vs CPU")
+    facts = dict(brick_wall_s=b_wall, hash_wall_s=h_wall,
+                 brick_capacity=b_st.capacity, hash_capacity=h_st.capacity,
+                 hash_rehashes=grown["n"], voxels=voxels, max_abs_diff=diff, not_bit_equal=n_diff,
+                 k1_launches=launches, k1_widest_ms=k1_ms,
+                 k1_widest_bound_ms=k1_bound_ms, k1_widest_nb=nb,
+                 k1_widest_lanes=lanes, f64_voxels=f64_voxels,
+                 f64_max_abs_diff=f64_diff, f64_not_bit_equal=f64_n_diff,
+                 f64_card_s=g_s, f64_cpu_s=c_s)
+    print(
+        f"phase 7b wide keys: {WIDE_PINGS} pings of 500x512 at max_range "
+        f"{WIDE_RANGE} m (no window fits box keys), window 16, float32: "
+        f"brick (two-word codes) {b_wall:.3f} s, {launches} bin_apply "
+        f"launches, {b_st.capacity} bricks; hash {h_wall:.3f} s, "
+        f"{h_st.capacity} slots after {grown['n']} rehashes; per-ping stats and {voxels} voxels equal, "
+        f"log-odds max |diff| {diff:.3g}, {n_diff} not bit-equal.  "
+        f"bin_apply == plain in float32 and float64 on the widest wide window"
+        f" (NB={nb}, L={lanes}), {k1_ms:.4f} ms device time, bound "
+        f"{k1_bound_ms:.4f} ms ({k1_bound_ms / k1_ms:.1%} of it).  "
+        f"{WIDE_F64_PINGS} pings in float64, window 8, card vs CPU: stats "
+        f"and {f64_voxels} voxels equal, max |diff| {f64_diff:.3g} "
+        f"(tolerance {F64_TOL}), {f64_n_diff} not bit-equal; card "
+        f"{g_s:.3f} s, CPU {c_s:.3f} s [{smi}]",
+        flush=True,
+    )
+    return launches, facts
+
+
+def _hash_entry_points(dev, smi, hash_state, brick_cli_voxels):
+    """7c: ENTRY_PINGS process_sonar_image pings of SonarMapper(backend=
+    "hash"), save_map -> load_map of 7a's map on the card, and map-bag
+    --offline --backend hash on phase 5d's bag.  Returns facts."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
+        load_map,
+        save_map,
+    )
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, ENTRY_PINGS)
+    m = SonarMapper(cfg, backend="hash", device=dev)
+    ms = []
+    for x in zip(images, positions, quats):
+        _, t = _wall(lambda: m.process_sonar_image(*x))
+        ms.append(t * 1e3)
+    warm = np.asarray(ms[1:])
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "hash.npz")
+    _, save_s = _wall(lambda: save_map(path, hash_state, cfg))
+    (state, _), load_s = _wall(lambda: load_map(path, device=dev))
+    if state.log_odds.device != dev:
+        raise AssertionError(f"the snapshot loaded on {state.log_odds.device}")
+    voxels, _, n_diff = _same_voxels(_touched(state), _touched(hash_state), 0.0,
+                                     "load_map vs the saved map")
+    if not (torch.equal(state.min_bounds, hash_state.min_bounds)
+            and torch.equal(state.max_bounds, hash_state.max_bounds)):
+        raise AssertionError("load_map's bounds differ from the saved map's")
+
+    bag = os.path.join(ROOT, "build", "chip_smoke", "cli.db3")
+    out, proc_s = _cli("map-bag", bag, "--offline", "--window", "16",
+                       "--backend", "hash")
+    s = json.loads(out.splitlines()[-1])
+    if s["num_voxels"] != brick_cli_voxels or s["device"] != str(dev):
+        raise AssertionError(f"map-bag --backend hash summary {s} against "
+                             f"{brick_cli_voxels} brick voxels")
+    facts = dict(process_sonar_image_ms=float(np.median(warm)),
+                 first_ping_ms=ms[0], mapper_capacity=m.state.capacity,
+                 save_map_s=save_s, load_map_s=load_s, voxels=voxels,
+                 cli_map_time_s=s["map_time"],
+                 cli_pings_per_sec=s["pings_per_sec"], cli_process_s=proc_s)
+    print(
+        f"phase 7c hash entry points: {ENTRY_PINGS} bench pings through "
+        f"SonarMapper(backend=\"hash\").process_sonar_image: first "
+        f"{ms[0]:.1f} ms, then median {np.median(warm):.2f} ms, max "
+        f"{warm.max():.2f} ms per ping, {m.state.capacity} slots; save_map "
+        f"{save_s:.3f} s, load_map on the card {load_s:.3f} s, {voxels} "
+        f"voxels and log-odds bit-equal ({n_diff} differ); map-bag --offline "
+        f"--backend hash: {s['num_voxels']} voxels, equal to the brick run's,"
+        f" map {s['map_time']:.3f} s, {s['pings_per_sec']:.1f} pings/s, "
+        f"process {proc_s:.1f} s [{smi}]",
+        flush=True,
+    )
+    return facts
+
+
+def _hash_stream_and_node(dev, smi, hash_state):
+    """7d: the survey through StreamingMapper(backend="hash") at chunk 16,
+    against 7a's map; the node with map_backend "hash" for NODE_PINGS
+    pairs, against a CPU hash mapper.  Returns facts."""
+    msgs = _survey_msgs(STREAM_PINGS)
+    sm, wall = _wall(lambda: _stream(msgs, dev, chunk_size=16, window=16,
+                                     backend="hash"))
+    voxels, _, _ = _same_voxels(_touched(sm.state), _touched(hash_state), 0.0,
+                                "hash stream vs 7a's map")
+    if sm.stats.frames_mapped != len(msgs):
+        raise AssertionError(f"hash stream: {sm.stats.summary()}")
+    _, node = _node(dev, smi, msgs, backend="hash")
+    print(
+        f"phase 7d hash stream: {len(msgs)} pings as message pairs, chunk "
+        f"16, window 16: {voxels} voxels and log-odds equal 7a's map "
+        f"(tolerance 0); wall {wall:.3f} s, {len(msgs) / wall:.1f} pings/s, "
+        f"latency p50 {sm.stats.summary()['latency_p50_s'] * 1e3:.1f} ms "
+        f"[{smi}]",
+        flush=True,
+    )
+    return dict(stream_wall_s=wall, stream_pings_per_sec=len(msgs) / wall,
+                node=node)
+
+
+def phase_hash_and_wide(dev, smi, main_voxels, main_stats, brick_cli_voxels):
+    """Phase 7: the hash backend and the wide key path.  Returns ({path: K1
+    launches}, measured numbers)."""
+    t0 = time.perf_counter()
+    hash_state, main = _hash_main(dev, smi, main_voxels, main_stats)
+    wide_launches, wide = _wide_keys(dev, smi)
+    entry = _hash_entry_points(dev, smi, hash_state, brick_cli_voxels)
+    stream = _hash_stream_and_node(dev, smi, hash_state)
+    print(f"phase 7 hash and wide keys: {time.perf_counter() - t0:.1f} s "
+          f"[{smi}]", flush=True)
+    return {"map_ping_sequence (wide keys)": wide_launches}, dict(
+        hash=main, wide_keys=wide, hash_entry_points=entry,
+        hash_stream=stream)
+
+
 def main() -> int:
     import torch
 
@@ -1757,6 +2096,7 @@ def main() -> int:
         dev, "pallas-raw")
     check_raw_equals_dedup(dedup, raw)
     main_voxels = touched_voxels_brick(dedup[0])
+    main_stats = dedup[1]
     del dedup, raw
     k1 = _k1_form(dev, k1_shape, k1_real, raw=False)
     k1_raw = _k1_form(dev, raw_shape, raw_real, raw=True)
@@ -1767,6 +2107,8 @@ def main() -> int:
     stream_launches, stream = phase_stream(
         dev, smi, main_voxels, entry["process_sonar_image_ms"],
         entry["cli_map_bag"]["num_voxels"])
+    wide_launches, hash_wide = phase_hash_and_wide(
+        dev, smi, main_voxels, main_stats, entry["cli_map_bag"]["num_voxels"])
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -1775,8 +2117,8 @@ def main() -> int:
     rows = [
         ("bin_apply", bin_src, bin_tpu, k1_launches,
          dict(main=k1_launches, **entry_launches,
-              **stream_launches["bin_apply"]),
-         dict(k1, entry_points=entry, stream=stream)),
+              **stream_launches["bin_apply"], **wide_launches),
+         dict(k1, entry_points=entry, stream=stream, **hash_wide)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
           **stream_launches["bin_apply_raw"]}, k1_raw),

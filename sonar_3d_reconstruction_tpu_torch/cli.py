@@ -11,9 +11,11 @@
 
   python -m sonar_3d_reconstruction_tpu_torch map-bag BAG [--chunk C]
       [--publish] [--config YAML] [--param K=V] [--window W]
-      [--save-map OUT.npz] [--save-cloud OUT.pc2] [--device D]
+      [--backend brick|hash] [--save-map OUT.npz] [--save-cloud OUT.pc2]
+      [--device D]
       Replay the bag through the streaming runtime (stream.StreamingMapper,
-      brick backend): pings are paired with odometry as they arrive and
+      brick backend unless --backend hash): pings are paired with odometry
+      as they arrive and
       mapped in chunks of C, windows of W; --publish attaches a counting
       publish sink at the config's publish_rate_hz (stream time).  Prints
       one JSON line: the stream's summary (counters, latency p50/p95/max),
@@ -22,7 +24,7 @@
 
   python -m sonar_3d_reconstruction_tpu_torch map-bag BAG --offline [...]
       Decode and pair the whole bag, then map it in windows of W pings
-      (pipeline.map_ping_sequence, brick backend); prints one JSON line
+      (pipeline.map_ping_sequence, either backend); prints one JSON line
       (pairs, voxels, load and map seconds, pings/s, realtime factor, the
       device and the binning kernel's launches).
 
@@ -136,7 +138,8 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
 
     mapper = StreamingMapper(
         cfg, stream_cfg, chunk_size=args.chunk, window=args.window,
-        dtype=torch.float32, publish=pub_cb, device=device,
+        dtype=torch.float32, publish=pub_cb, backend=args.backend,
+        device=device,
     )
     k1_before = bin_apply.launches
     t0 = time.perf_counter()
@@ -216,11 +219,16 @@ def _map_bag_offline(args, device, cfg, stream_cfg) -> int:
         from sonar_3d_reconstruction_tpu_torch.grid.brick import (
             extract_occupied_brick,
         )
+        from sonar_3d_reconstruction_tpu_torch.grid.hash import (
+            extract_occupied_hash,
+        )
         from sonar_3d_reconstruction_tpu_torch.io.pointcloud import (
             serialize_pointcloud2,
         )
 
-        pts, probs = extract_occupied_brick(state, cfg)
+        extract = (extract_occupied_hash if args.backend == "hash"
+                   else extract_occupied_brick)
+        pts, probs = extract(state, cfg)
         with open(args.save_cloud, "wb") as f:
             f.write(serialize_pointcloud2(pts, probs)["data"])
     return 0
@@ -302,8 +310,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="config override (highest priority), repeatable",
     )
     p.add_argument(
-        "--backend", choices=("brick",), default="brick",
-        help="map backend (only the brick table is ported)",
+        "--backend", choices=("brick", "hash"), default="brick",
+        help="map backend: the brick table (default) or the per-voxel hash",
     )
     p.add_argument(
         "--offline", action="store_true",

@@ -1,5 +1,6 @@
 """Brick grid — sparse hash of dense voxel bricks (PyTorch port of
-``sonar_3d_reconstruction_tpu.grid.brick``, compact box-key window apply).
+``sonar_3d_reconstruction_tpu.grid.brick``: the compact box-key window
+apply and the wide two-word one).
 
 The hash table (grid/hash.py) is keyed by 4x4x4 voxel bricks and each
 entry holds a dense (brick_volume,) log-odds row, so one row gather or
@@ -22,6 +23,11 @@ candidates (``frame_records(raw=True)``), which K1's raw form sums per
 (brick, frame, offset) slot into the same aggregates, so both modes give
 the same map.  In raw mode the per-frame unique-voxel stats come from the
 kernel and ``batch_n_lanes`` counts candidate lanes.
+
+A window too wide for compact keys takes two-word brick codes
+(``apply_brick_records_wide``, unique records only): step 1 ranks the
+window's distinct bricks in code order, and the (rank, frame, offset) key
+then feeds the same steps 2-4 and K1.
 
 A ``touched`` bitmask per brick keeps the reference's touched-voxel
 semantics: a never-updated voxel (p = 0.5, not reported) differs from an
@@ -49,18 +55,25 @@ from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     bucket_lookup,
     commit_insert,
     empty_key_rows,
+    plan_fresh_insert,
     plan_insert,
 )
 from sonar_3d_reconstruction_tpu_torch.kernels.bin_apply import (
     bin_apply,
     bin_apply_raw,
 )
-from sonar_3d_reconstruction_tpu_torch.ops.dedup import CompactRecords
+from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
+    CompactRecords,
+    UniqueRecords,
+)
 from sonar_3d_reconstruction_tpu_torch.ops.logodds import probability_to_log_odds
 from sonar_3d_reconstruction_tpu_torch.ops.packing import (
     EMPTY32,
+    EMPTY64,
     EMPTY_HI,
     U32,
+    code_words,
+    key_code,
     pack_brick_keys,
     unpack_box_brick,
     unpack_brick_keys,
@@ -224,9 +237,71 @@ def apply_brick_records_compact(
     c_hi, c_lo, g_ok = pack_brick_keys(corner, bb)
     auxs = auxs._replace(range_fail=auxs.range_fail | (~g_ok).any())
 
+    # raw candidates carry count 1 each and are summed unpacked: no packing
+    # width to overflow
+    pack_overflow = (torch.zeros((), dtype=torch.bool, device=device) if raw
+                     else recs.pack_fail.any())
     return _apply_window_tail(
         state, cfg, c_hi, c_lo, s_flat, s_pay, starts,
-        B=B, f_bits=f_bits, o=o, raw=raw, recs=recs, auxs=auxs,
+        B=B, f_bits=f_bits, o=o, raw=raw, pack_overflow=pack_overflow,
+        rec_valid=recs.valid, rec_n_occ=recs.n_occ, auxs=auxs,
+        n_lanes=n_lanes, n_bricks=n_bricks,
+    )
+
+
+def apply_brick_records_wide(
+    state: BrickGridState,
+    recs: UniqueRecords,    # stacked over B frames: (B, U), brick codes
+    auxs: FrameAux,         # stacked over B frames
+    cfg: MapperConfig,
+) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
+    """Apply one window of B frames of two-word unique records (brick
+    codes, ``frame_records`` without a box) to the brick map: the path of
+    a window too wide for compact keys.  Same stats, failure contract and
+    map as ``apply_brick_records_compact``.
+
+    The records reach K1 in its documented (brick, frame, offset) order:
+    ``torch.unique`` ranks the window's distinct bricks in code order (the
+    order of the JAX package's compaction, so new bricks take the same
+    slots), and one sort of ``rank << (f_bits + o) | frame << o | offset``
+    orders the lanes.  K1 reads only the frame and offset fields of a key's
+    low word, and the brick of a lane from ``starts``.
+    """
+    B, U = recs.hi.shape
+    bb = state.brick_bits
+    o = 3 * bb
+    f_bits = max(1, (B - 1).bit_length())
+    device = state.log_odds.device
+
+    valid = recs.valid.reshape(-1)
+    code = key_code(recs.hi.reshape(-1), recs.lo.reshape(-1), brick=True)
+    bcode = torch.where(valid, code >> o, EMPTY64)
+    uniq, rank = torch.unique(bcode, return_inverse=True)
+    frame = torch.arange(B, device=device).repeat_interleave(U)
+    # invalid lanes share the sentinel's rank, the last one
+    flat = (rank << (f_bits + o)) | (frame << o) | (code & ((1 << o) - 1))
+    s_flat, order = torch.sort(flat)
+    count = recs.count.reshape(-1)
+    # the payload packs count in 16 bits: a voxel with 2^16+ candidates in
+    # one frame is fatal, as in the JAX package
+    pack_overflow = (valid & (count > 0xFFFF)).any()
+    payload = torch.where(valid, (count << 16) | recs.n_occ.reshape(-1), 0)
+    n_lanes, n_bricks = torch.stack(
+        [valid.sum(), (uniq != EMPTY64).sum()]
+    ).tolist()
+
+    # valid lanes are a sorted prefix; brick i's records are
+    # [starts[i], starts[i+1])
+    s_flat = s_flat[:n_lanes]
+    s_pay = payload[order[:n_lanes]]
+    starts = torch.searchsorted(
+        s_flat >> (f_bits + o), torch.arange(n_bricks + 1, device=device)
+    )
+    c_hi, c_lo = code_words(uniq[:n_bricks] << o, brick=True)
+    return _apply_window_tail(
+        state, cfg, c_hi, c_lo, s_flat, s_pay, starts,
+        B=B, f_bits=f_bits, o=o, raw=False, pack_overflow=pack_overflow,
+        rec_valid=recs.valid, rec_n_occ=recs.n_occ, auxs=auxs,
         n_lanes=n_lanes, n_bricks=n_bricks,
     )
 
@@ -236,15 +311,12 @@ def _apply_window_tail(
     cfg: MapperConfig,
     c_hi, c_lo, s_flat, s_pay, starts,
     *,
-    B, f_bits, o, raw, recs, auxs, n_lanes, n_bricks,
+    B, f_bits, o, raw, pack_overflow, rec_valid, rec_n_occ, auxs, n_lanes,
+    n_bricks,
 ) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
     """Table lookup/insert at the window's bricks, K1, commit and stats."""
     vol = state.brick_volume
     dtype, device = state.log_odds.dtype, state.log_odds.device
-    # raw candidates carry count 1 each and are summed unpacked: no packing
-    # width to overflow
-    pack_overflow = (torch.zeros((), dtype=torch.bool, device=device) if raw
-                     else recs.pack_fail.any())
 
     bucket, found, found_slot, fill = bucket_lookup(state.key_rows, c_hi, c_lo)
     plan = plan_insert(state.key_rows, c_hi, c_lo, ~found, bucket, fill)
@@ -284,9 +356,9 @@ def _apply_window_tail(
         )
     else:
         v, upd = bin_apply(s_flat, s_pay, starts, rows_cur, **kw)
-        rec_occ = recs.valid & (recs.n_occ > 0)
+        rec_occ = rec_valid & (rec_n_occ > 0)
         num_occupied = rec_occ.sum(dim=1)
-        num_free = (recs.valid & ~rec_occ).sum(dim=1)
+        num_free = (rec_valid & ~rec_occ).sum(dim=1)
     n_new = (upd & ~_unpack_touched(touched_cur, vol)).sum()
     new_state = BrickGridState(
         key_rows=key_rows,
@@ -311,16 +383,9 @@ def rehash_bricks(state: BrickGridState, new_capacity: int) -> BrickGridState:
     """Grow the table (clears ``poisoned`` for replay), doubling again until
     every existing bucket fits.  Existing keys are re-inserted in slot
     order, as the JAX package does."""
-    device = state.key_rows.device
     hi, lo = state.key_hi, state.key_lo
-    occupied = hi != EMPTY_HI
-    while True:
-        fresh = empty_key_rows(new_capacity, device)
-        bucket, _, _, fill = bucket_lookup(fresh, hi, lo)
-        plan = plan_insert(fresh, hi, lo, occupied, bucket, fill)
-        if not bool(plan.overflowed):
-            break
-        new_capacity *= 2
+    fresh, plan = plan_fresh_insert(new_capacity, hi, lo, hi != EMPTY_HI)
+    new_capacity = fresh.shape[0] * BUCKET_SLOTS
     # empty old slots map to the dump row new_capacity, cut off below
     slots = plan.slots
 
@@ -478,14 +543,10 @@ def load_voxels_brick(
         capacity = 1 << 10
         while capacity < 4 * max(1, len(first)):
             capacity *= 2
-    new = torch.ones_like(b_hi, dtype=torch.bool)
-    while True:
-        key_rows = empty_key_rows(capacity, device)
-        bucket, _, _, fill = bucket_lookup(key_rows, b_hi, b_code)
-        plan = plan_insert(key_rows, b_hi, b_code, new, bucket, fill)
-        if not bool(plan.overflowed):
-            break
-        capacity *= 2
+    key_rows, plan = plan_fresh_insert(
+        capacity, b_hi, b_code, torch.ones_like(b_hi, dtype=torch.bool)
+    )
+    capacity = key_rows.shape[0] * BUCKET_SLOTS
     slot = plan.slots[torch.as_tensor(rank[inverse.reshape(-1)], device=device)]
     state = init_brick_grid(capacity, dtype, device, brick_bits)
     flat = slot * vol + offset

@@ -1,21 +1,19 @@
-"""Map snapshot / restore for brick maps (PyTorch port of the brick half of
-``sonar_3d_reconstruction_tpu.io.checkpoint``).
+"""Map snapshot / restore (PyTorch port of
+``sonar_3d_reconstruction_tpu.io.checkpoint`` for brick and hash maps).
 
 A snapshot is one ``.npz`` in the JAX package's ``sonar3d-map-v1`` format:
 the touched voxels as UNPACKED (N, 3) int32 keys with their log-odds in
 the map's dtype (a float64 map stays float64), the bounds, and the config
 as JSON.  The format does not depend on the table layout, so a snapshot
-saved by either package loads into the other, into a brick or a hash grid.
-
-Only brick maps are ported: ``load_map`` (into a hash grid) waits for the
-hash backend (ROADMAP item 16), and the sharded loaders for multi-GPU
-(item 18).
+saved by either package, from either backend, loads into the other, into
+a brick grid (``load_map_brick``) or a hash grid (``load_map``).  The
+sharded loaders wait for multi-GPU (ROADMAP item 18).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,13 +26,23 @@ from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     load_voxels_brick,
     touched_voxels_brick,
 )
+from sonar_3d_reconstruction_tpu_torch.grid.hash import (
+    HashGridState,
+    load_voxels_hash,
+    touched_voxels_hash,
+)
 
 _FORMAT = "sonar3d-map-v1"
 
 
-def save_map(path: str, state: BrickGridState, cfg: MapperConfig) -> None:
-    """Snapshot a brick map's touched voxels, bounds and config to ``path``."""
-    keys, log_odds = touched_voxels_brick(state)
+def save_map(
+    path: str, state: Union[BrickGridState, HashGridState], cfg: MapperConfig
+) -> None:
+    """Snapshot a brick or hash map's touched voxels, bounds and config to
+    ``path``."""
+    touched = (touched_voxels_brick if isinstance(state, BrickGridState)
+               else touched_voxels_hash)
+    keys, log_odds = touched(state)
     np.savez_compressed(
         path,
         format=np.asarray(_FORMAT),
@@ -44,6 +52,44 @@ def save_map(path: str, state: BrickGridState, cfg: MapperConfig) -> None:
         max_bounds=state.max_bounds.cpu().numpy(),
         config=np.asarray(json.dumps(cfg.to_dict())),
     )
+
+
+def _read(path: str):
+    """(keys, log_odds, min_bounds, max_bounds, config) of a snapshot."""
+    with np.load(path, allow_pickle=False) as z:
+        if str(z["format"]) != _FORMAT:
+            raise ValueError(f"unknown snapshot format in {path}")
+        return (z["keys"], z["log_odds"], z["min_bounds"], z["max_bounds"],
+                config_from_dict(json.loads(str(z["config"]))))
+
+
+def _with_bounds(state, min_bounds, max_bounds):
+    device, dtype = state.log_odds.device, state.log_odds.dtype
+    return state._replace(
+        min_bounds=torch.as_tensor(min_bounds, device=device).to(dtype),
+        max_bounds=torch.as_tensor(max_bounds, device=device).to(dtype),
+    )
+
+
+def load_map(
+    path: str,
+    capacity: Optional[int] = None,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> Tuple[HashGridState, MapperConfig]:
+    """Restore a snapshot into a fresh hash grid on ``device`` (the first
+    CUDA device when None; RuntimeError where there is none).  ``dtype``
+    defaults to the snapshot's value dtype; ``capacity`` (slots) is sized
+    to keep the load at or under 0.25 unless given.  Returns (state,
+    config)."""
+    device = (require_cuda() if device is None
+              else torch.empty(0, device=device).device)
+    keys, log_odds, min_bounds, max_bounds, cfg = _read(path)
+    if dtype is None:
+        dtype = torch.from_numpy(log_odds[:0]).dtype
+    state = load_voxels_hash(keys, log_odds, device, capacity=capacity,
+                             dtype=dtype)
+    return _with_bounds(state, min_bounds, max_bounds), cfg
 
 
 def load_map_brick(
@@ -59,24 +105,11 @@ def load_map_brick(
     from the voxels unless given.  Returns (state, config)."""
     device = (require_cuda() if device is None
               else torch.empty(0, device=device).device)
-    with np.load(path, allow_pickle=False) as z:
-        if str(z["format"]) != _FORMAT:
-            raise ValueError(f"unknown snapshot format in {path}")
-        keys = z["keys"]
-        log_odds = z["log_odds"]
-        min_bounds = z["min_bounds"]
-        max_bounds = z["max_bounds"]
-        cfg = config_from_dict(json.loads(str(z["config"])))
+    keys, log_odds, min_bounds, max_bounds, cfg = _read(path)
     if dtype is None:
         dtype = torch.from_numpy(log_odds[:0]).dtype
     state = load_voxels_brick(
         keys, log_odds, device, capacity=capacity, dtype=dtype,
         brick_bits=brick_bits or DEFAULT_BRICK_BITS,
     )
-    return (
-        state._replace(
-            min_bounds=torch.as_tensor(min_bounds, device=device).to(dtype),
-            max_bounds=torch.as_tensor(max_bounds, device=device).to(dtype),
-        ),
-        cfg,
-    )
+    return _with_bounds(state, min_bounds, max_bounds), cfg

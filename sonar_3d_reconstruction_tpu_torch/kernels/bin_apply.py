@@ -257,6 +257,13 @@ def bin_apply(
     unique per (brick, frame, offset); ``starts`` (NB+1,) int64 record-range
     starts of the compacted bricks; ``rows_cur`` (NB, vol) their current
     value rows.  Returns (new rows, touched-this-window mask).
+
+    Both brick window applies deliver that order (grid/brick.py): the
+    compact one sorts ``box brick << (f_bits + o) | frame << o | offset``,
+    the wide one ``brick rank << (f_bits + o) | frame << o | offset``.
+    The kernel reads only the frame and offset fields of a key's low word;
+    a lane's brick comes from ``starts``, so the field above them may hold
+    either.
     """
     global launches
     device = _cuda_inputs(s_flat, s_pay, starts, rows_cur, B, vol, f_bits, o,

@@ -1,20 +1,26 @@
 """SonarMapper — the stateful reference-parity API (PyTorch port of
-``sonar_3d_reconstruction_tpu.models.mapper``, brick backend).
+``sonar_3d_reconstruction_tpu.models.mapper``, brick and hash backends).
 
 Same surface as the reference ``SonarTo3DMapper`` (scripts/3d_mapper.py:
 197-650): ``process_sonar_image(polar_image, position, quaternion) ->
 stats`` and ``get_point_cloud(include_free) -> dict``, with the same result
-fields, over a brick map on one device (the first CUDA device unless the
-caller names another).
+fields, over a brick or hash map on one device (the first CUDA device
+unless the caller names another).  The port's default backend is
+``"brick"``; the JAX mapper's is ``"hash"``.
 
-Both ``process_sonar_image`` and ``map_sequence`` go through
-``pipeline.map_ping_sequence``, the compact box-key path with the binning
-kernel K1: a ping is a sequence of one, mapped with window 1 into this
-mapper's state.  (The JAX mapper's per-ping step takes the wide two-word
-key path, XLA scatter without a Pallas kernel; the port has no wide-key
-path, ROADMAP item 15.  The maps agree voxel for voxel; their table slots
-may not.)  Capacity growth and replay happen inside ``map_ping_sequence``,
-whose grown state this mapper keeps.
+Brick: ``process_sonar_image`` and ``map_sequence`` go through
+``pipeline.map_ping_sequence`` with the binning kernel K1: a ping is a
+sequence of one, mapped with window 1 into this mapper's state, with
+compact box keys or, past their reach, two-word brick codes.  (The JAX
+mapper's per-ping step always takes two-word codes; the maps agree voxel
+for voxel, their table slots may not.)  Capacity growth and replay happen
+inside ``map_ping_sequence``, whose grown state this mapper keeps.
+
+Hash: a ping likewise goes through ``map_ping_sequence(backend="hash",
+window=1)``, one ``update_hash_grid`` as in the JAX mapper.  Before it the
+table doubles once more than a quarter of its slots are used (the JAX
+mapper's proactive growth); a bucket overflow doubles it again and replays
+the ping.  ``map_sequence`` goes through the same call.
 
 Fan tables are built once per image geometry for the per-ping path
 (exact, uncapped, as the JAX mapper builds them); ``map_sequence`` lets
@@ -33,34 +39,39 @@ import numpy as np
 import torch
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig, config_from_dict
-from sonar_3d_reconstruction_tpu_torch.device import require_cuda
+from sonar_3d_reconstruction_tpu_torch.device import require_cuda, to_device
 from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
-from sonar_3d_reconstruction_tpu_torch.grid.brick import (
-    extract_classified_brick,
-    extract_occupied_brick,
-    init_brick_grid,
-    query_log_odds_brick,
-    query_probability_brick,
-)
+from sonar_3d_reconstruction_tpu_torch.grid import brick, hash as hash_grid
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     FanTables,
     build_fan_tables,
 )
-from sonar_3d_reconstruction_tpu_torch.ops.packing import (
-    compute_window_boxes,
-    unpack_box_brick,
-)
+from sonar_3d_reconstruction_tpu_torch.ops.packing import unpack_keys
 from sonar_3d_reconstruction_tpu_torch.ops.records import frame_records
 from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
 # backends of the JAX mapper and the ROADMAP items that port them
-_NOT_PORTED = {"hash": 16, "dense": 17, "brick-sharded": 18}
+_NOT_PORTED = {"dense": 17, "brick-sharded": 18}
+
+# the hash table doubles before a ping once more than this share of its
+# slots is used (the JAX mapper's bound: buckets of 128 at a mean fill of
+# 32 practically never overflow)
+_MAX_LOAD = 0.25
+
+# each backend's reads: (extract occupied, extract classified, log-odds
+# query, probability query)
+_READS = {
+    "brick": (brick.extract_occupied_brick, brick.extract_classified_brick,
+              brick.query_log_odds_brick, brick.query_probability_brick),
+    "hash": (hash_grid.extract_occupied_hash, hash_grid.extract_classified_hash,
+             hash_grid.query_log_odds, hash_grid.query_probability),
+}
 
 
 class SonarMapper:
     """Stateful sonar-to-3D mapper (reference SonarTo3DMapper parity,
-    3d_mapper.py:197-650) over a brick map on ``device``: the first CUDA
-    device when None (RuntimeError where there is none)."""
+    3d_mapper.py:197-650) over a brick or hash map on ``device``: the first
+    CUDA device when None (RuntimeError where there is none)."""
 
     def __init__(
         self,
@@ -81,19 +92,24 @@ class SonarMapper:
         if backend in _NOT_PORTED:
             raise ValueError(
                 f"backend {backend!r} is not ported yet (ROADMAP item "
-                f"{_NOT_PORTED[backend]}); use 'brick'"
+                f"{_NOT_PORTED[backend]}); use 'brick' or 'hash'"
             )
-        if backend != "brick":
+        if backend not in _READS:
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self.dtype = dtype
         self.device = (require_cuda() if device is None
                        else torch.empty(0, device=device).device)
-        # brick capacity counts BRICKS (~1/30 of voxels on real surveys);
-        # growth with replay is the safety net either way
-        self.state = init_brick_grid(
-            max(128, initial_capacity >> 4), dtype, self.device
-        )
+        if backend == "hash":
+            self.state = hash_grid.init_hash_grid(
+                initial_capacity, dtype, self.device
+            )
+        else:
+            # brick capacity counts BRICKS (~1/30 of voxels on real
+            # surveys); growth with replay is the safety net either way
+            self.state = brick.init_brick_grid(
+                max(128, initial_capacity >> 4), dtype, self.device
+            )
         self._tables: Optional[FanTables] = None
         # optional per-voxel update-count histograms (reference debug stats,
         # 3d_mapper.py:306-308, 549-551): candidate EMISSIONS per voxel, the
@@ -128,13 +144,21 @@ class SonarMapper:
         positions = np.asarray(robot_position, np.float64)[None]
         quats = np.asarray(robot_orientation, np.float64)[None]
         tables = self._tables_for(images.shape[1:])
-        self.state, stats = map_ping_sequence(
+        if self.backend == "hash":
+            # the JAX mapper's proactive growth; a bucket overflow still
+            # doubles the table and replays the ping in map_ping_sequence
+            while int(self.state.used) > _MAX_LOAD * self.state.capacity:
+                self.state = hash_grid.rehash(self.state,
+                                              2 * self.state.capacity)
+        self.state, seq_stats = map_ping_sequence(
             images, positions, quats, self.cfg, device=self.device,
-            state=self.state, dtype=self.dtype, window=1, tables=tables,
+            backend=self.backend, state=self.state, dtype=self.dtype,
+            window=1, tables=tables,
         )
+        stats = {k: v[0] for k, v in seq_stats.items()}
         if self.track_update_counts:
             self._record_update_counts(images, positions, quats, tables)
-        return self._finish_ping({k: v[0] for k, v in stats.items()}, t0)
+        return self._finish_ping(stats, t0)
 
     def _finish_ping(self, stats, t0: float) -> Dict[str, Any]:
         """The reference-schema per-ping result (3d_mapper.py:587-595)."""
@@ -167,7 +191,8 @@ class SonarMapper:
         n = images.shape[0]
         self.state, stats = map_ping_sequence(
             images, positions, quaternions, self.cfg, device=self.device,
-            state=self.state, dtype=self.dtype, window=window,
+            backend=self.backend, state=self.state, dtype=self.dtype,
+            window=window,
         )
         if self.track_update_counts and n:
             self._record_update_counts(
@@ -186,29 +211,17 @@ class SonarMapper:
     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Per ping: ((n, 3) voxel keys, (n,) candidate emissions) of its
         unique records, from the records recomputed alone (map-state
-        independent): box key -> brick corner + offset -> voxel key."""
-        cfg = self.cfg
-        bb = self.state.brick_bits
-        o = 3 * bb
-        b = (1 << bb) - 1
-        T = batched_sonar_to_world(positions, quaternions, cfg)
-        box_mins, box_bits = compute_window_boxes(
-            T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, 1, bb,
-            frame_bits=1,
-        )
-        for image, T_i, box_min in zip(images, T, box_mins):
-            box_min = torch.as_tensor(box_min, device=self.device)
+        independent) with two-word voxel codes, as the JAX mapper does."""
+        T = batched_sonar_to_world(positions, quaternions, self.cfg)
+        for image, T_i in zip(images, T):
             rec, _ = frame_records(
-                torch.as_tensor(image, device=self.device),
+                to_device(image, self.device),
                 torch.as_tensor(T_i, device=self.device).to(self.dtype),
-                tables, cfg, box_min, box_bits, bb, dtype=self.dtype,
+                tables, self.cfg, None, None, 0, dtype=self.dtype,
             )
-            valid = rec.valid
-            key = rec.key[valid]
-            off = key & ((1 << o) - 1)
-            offs = torch.stack([off >> (2 * bb), (off >> bb) & b, off & b], -1)
-            voxel = unpack_box_brick(key >> o, box_min, box_bits, bb) + offs
-            yield voxel.cpu().numpy(), (rec.payload[valid] >> 16).cpu().numpy()
+            n = int(rec.n_unique)
+            voxel = unpack_keys(rec.hi[:n], rec.lo[:n])
+            yield voxel.cpu().numpy(), rec.count[:n].cpu().numpy()
 
     def _record_update_counts(self, images, positions, quaternions, tables):
         """Debug path (reference voxel_update_counts / frame_update_counts,
@@ -281,8 +294,9 @@ class SonarMapper:
         """Map extraction with the reference result schema
         (3d_mapper.py:597-642)."""
         cfg = self.cfg
+        extract_occupied, extract_classified = _READS[self.backend][:2]
         if include_free:
-            cls = extract_classified_brick(self.state, cfg)
+            cls = extract_classified(self.state, cfg)
             occupied, free, unknown = cls["occupied"], cls["free"], cls["unknown"]
             bounds = (self.state.min_bounds.cpu().numpy(),
                       self.state.max_bounds.cpu().numpy())
@@ -301,7 +315,7 @@ class SonarMapper:
                     "max": bounds[1] if cfg.dynamic_expansion else None,
                 },
             }
-        points, probs = extract_occupied_brick(self.state, cfg)
+        points, probs = extract_occupied(self.state, cfg)
         return {
             "points": points,
             "probabilities": probs,
@@ -315,7 +329,7 @@ class SonarMapper:
         """Batched point query: (N, 3) world coords -> (N,) occupancy
         probabilities; never-updated voxels answer 0.5 (the reference's
         per-point SimpleOctree.get_probability, 3d_mapper.py:122-126)."""
-        return query_probability_brick(self.state, points, self.cfg)
+        return _READS[self.backend][3](self.state, points, self.cfg)
 
     def get_probability(self, x: float, y: float, z: float) -> float:
         """Occupancy probability of the voxel containing (x, y, z)
@@ -325,7 +339,8 @@ class SonarMapper:
     def get_log_odds(self, x: float, y: float, z: float) -> float:
         """Log-odds of the voxel containing (x, y, z); 0.0 if never updated
         (reference SimpleOctree.get_log_odds, 3d_mapper.py:117-120)."""
-        return float(query_log_odds_brick(self.state, [[x, y, z]], self.cfg)[0])
+        query_log_odds = _READS[self.backend][2]
+        return float(query_log_odds(self.state, [[x, y, z]], self.cfg)[0])
 
     def clear(self) -> None:
         """Alias of reset_map (reference SimpleOctree.clear,
@@ -335,9 +350,15 @@ class SonarMapper:
     def reset_map(self) -> None:
         """Clear the map, keeping its grown capacity (reference reset_map,
         3d_mapper.py:644-650)."""
-        self.state = init_brick_grid(
-            self.state.capacity, self.dtype, self.device, self.state.brick_bits
-        )
+        if self.backend == "hash":
+            self.state = hash_grid.init_hash_grid(
+                self.state.capacity, self.dtype, self.device
+            )
+        else:
+            self.state = brick.init_brick_grid(
+                self.state.capacity, self.dtype, self.device,
+                self.state.brick_bits,
+            )
         self.frame_count = 0
         self.processed_frame_count = 0
         self.total_processing_time = 0.0

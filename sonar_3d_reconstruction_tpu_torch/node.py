@@ -5,15 +5,15 @@ Reproduces the reference node's runtime surface
 (scripts/3d_mapper_node.py:45-556): subscribes the sonar Image + Fast-LIO
 Odometry topics through an ApproximateTimeSynchronizer (queue 10, slop 0.1 s,
 Best-Effort QoS depth 10), maps each pair through
-``SonarMapper.process_sonar_image`` (the binning kernel K1 once a ping),
-publishes the occupied map as PointCloud2 (probability in the intensity
-field) on a fixed-rate wall timer, optionally publishes classified
-CUBE_LIST markers and the static base->sonar TF.
+``SonarMapper.process_sonar_image`` (on the brick map, the binning kernel
+K1 once a ping), publishes the occupied map as PointCloud2 (probability in
+the intensity field) on a fixed-rate wall timer, optionally publishes
+classified CUBE_LIST markers and the static base->sonar TF.
 
 The map lives on the first CUDA device, which the node requires; the
-``device`` parameter names another ("cpu" maps on the CPU).  Only the brick
-backend is ported: ``map_backend`` defaults to "brick" and "hash" raises
-(ROADMAP item 16).
+``device`` parameter names another ("cpu" maps on the CPU).
+``map_backend`` is "brick" (the default) or "hash" (the JAX node's
+default, kept for reference parity).
 
 rclpy is NOT a dependency of this package: importing this module without a
 ROS2 environment raises ImportError only when ``main``/``SonarMapperNode``
@@ -95,8 +95,8 @@ _NODE_PARAM_DEFAULTS: Dict[str, Any] = {
     # reference node:105 (read :154, used per frame :338-339; prod config
     # enables it, config/3d_mapper.yaml:62)
     "show_opencv_visualization": False,
-    # EXTENSIONS beyond the reference's declared set: the map backend (only
-    # "brick" is ported) and the torch device ("" = the first CUDA device,
+    # EXTENSIONS beyond the reference's declared set: the map backend
+    # ("brick" or "hash") and the torch device ("" = the first CUDA device,
     # required)
     "map_backend": "brick",
     "device": "",

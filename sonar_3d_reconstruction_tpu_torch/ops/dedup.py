@@ -1,5 +1,6 @@
-"""Sort-based per-frame voxel dedup over compact box keys (PyTorch port of
-``sonar_3d_reconstruction_tpu.ops.dedup.dedup_frame_compact``).
+"""Sort-based per-frame voxel dedup (PyTorch port of
+``sonar_3d_reconstruction_tpu.ops.dedup``: ``dedup_frame_compact`` over
+compact box keys, ``dedup_frame`` over two-word keys).
 
 A frame's candidates collapse into one record per distinct voxel:
 
@@ -17,8 +18,13 @@ below 2^16; the one case that is not (a voxel with 2^16+ candidates in one
 frame) shows as an equal-voxel pair 65535 lanes apart and is reported
 through ``pack_fail``.
 
-The JAX function truncates records to a static unique budget.  Here the
-output keeps the full candidate width (valid records first, ``EMPTY32``
+Two-word keys (``dedup_frame``) sort one int64 instead: the key's 60-bit
+code (ops/packing.key_code) with the occupied bit below it, and the
+record's (count, n_occ) come from the lane index and the occupied cumsum
+of its segment end, exactly, with no packing width to overflow.
+
+The JAX functions truncate records to a static unique budget.  Here the
+output keeps the full candidate width (valid records first, empty lanes
 after), so there is no budget and no overflow; the window engine slices it
 to the window's largest ``n_unique``.
 """
@@ -29,7 +35,76 @@ from typing import NamedTuple
 
 import torch
 
-from sonar_3d_reconstruction_tpu_torch.ops.packing import EMPTY32
+from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+    EMPTY32,
+    EMPTY64,
+    EMPTY_HI,
+    code_words,
+    key_code,
+)
+
+
+class UniqueRecords(NamedTuple):
+    """Per-frame unique-voxel records with two-word keys, in ascending key
+    order.  Along a leading frame axis when stacked for a window."""
+
+    hi: torch.Tensor        # (U,) int64 key word (EMPTY_HI = unused lane)
+    lo: torch.Tensor        # (U,) int64 (EMPTY_HI on unused lanes)
+    count: torch.Tensor     # (U,) int64 candidates in the voxel this frame
+    n_occ: torch.Tensor     # (U,) int64 occupied-type candidates
+    n_unique: torch.Tensor  # () int64 valid records (a prefix of the lanes)
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.hi != EMPTY_HI
+
+
+def dedup_frame(
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    occ: torch.Tensor,
+    valid: torch.Tensor,
+    brick: bool,
+) -> UniqueRecords:
+    """(N,) two-word keys (brick codes when ``brick``, else voxel codes),
+    occupied flags and emission mask -> UniqueRecords of width N.
+
+    One sort of ``code << 1 | occ`` (61 bits; invalid lanes EMPTY64, last)
+    groups each voxel's candidates; a second compacts the segment ends, in
+    key order, whose lane indices and occupied cumsums give each record's
+    count and n_occ as adjacent differences."""
+    n = hi.shape[0]
+    device = hi.device
+    code = key_code(hi, lo, brick)
+    skey = torch.where(valid, (code << 1) | occ.to(torch.int64), EMPTY64)
+    skey = torch.sort(skey).values
+
+    vox = skey >> 1
+    # invalid lanes sort past every record, so their sentinel's low bit
+    # only reaches cumsum lanes beyond the last record
+    csum_occ = torch.cumsum(skey & 1, dim=0)
+    first = torch.ones(1, dtype=torch.bool, device=device)
+    new_seg = torch.cat([first, vox[1:] != vox[:-1]])
+    is_end = torch.cat([new_seg[1:], first])
+    rec = is_end & (skey != EMPTY64)
+    n_unique = rec.sum()
+
+    # records are distinct voxels, so the unstable sort fixes their order,
+    # which is their end lanes' order; the sentinel tail is masked below
+    c_vox, end = torch.sort(torch.where(rec, vox, EMPTY64 >> 1))
+    c_csum = csum_occ[end]
+    prev_end = torch.cat([end.new_full((1,), -1), end[:-1]])
+    prev_csum = torch.cat([c_csum.new_zeros(1), c_csum[:-1]])
+
+    valid_u = torch.arange(n, device=device) < n_unique
+    c_hi, c_lo = code_words(c_vox, brick)
+    return UniqueRecords(
+        hi=torch.where(valid_u, c_hi, EMPTY_HI),
+        lo=torch.where(valid_u, c_lo, EMPTY_HI),
+        count=torch.where(valid_u, end - prev_end, 0),
+        n_occ=torch.where(valid_u, c_csum - prev_csum, 0),
+        n_unique=n_unique,
+    )
 
 
 class CompactRecords(NamedTuple):

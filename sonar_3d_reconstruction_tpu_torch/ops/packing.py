@@ -6,8 +6,10 @@ its unsigned value: CPU torch ``uint32`` lacks shifts, ``index_put_`` and
 instead of last.  Results are masked to 32 bits wherever the u32 original
 would have wrapped, so every packed word is bit-equal to the JAX one.
 
-Two packings serve the brick backend:
+Three packings:
 
+* voxel codes (``pack_keys``, the hash backend): 60 bits over two words,
+  (x, y, z) with 20 bits each, biased by 2^19, lo's high 4 bits zero.
 * brick-major global codes (``pack_brick_keys``): 60 bits over two words,
   (bx, by, bz, offset) in lexicographic order with lo's low 4 bits zero;
   the stored brick identity has offset bits zero.
@@ -15,6 +17,12 @@ Two packings serve the brick backend:
   ``bx:ax | by:ay | bz:az | offc:o`` relative to a brick-aligned per-window
   box origin from the host gate ``compute_window_boxes``.  Valid keys are
   below 2^31, so ``EMPTY32`` is unreachable.
+
+Both two-word packings hold their 60 bits as one int64 (``key_code``):
+``hi << 28`` over lo's 28 payload bits.  That keeps the (hi, lo) order and
+stays below 2^60, so a one-key torch sort orders the words and ``EMPTY64``
+sorts after every valid code.  ``hi << 32 | lo`` would not: hi's top bit
+is used, and it would land in int64's sign bit.
 """
 
 from __future__ import annotations
@@ -25,12 +33,57 @@ import numpy as np
 import torch
 
 AXIS_BITS = 20
+_BIAS = 1 << (AXIS_BITS - 1)      # 2^19
+_AXIS_MAX = (1 << AXIS_BITS) - 1  # biased upper bound (inclusive)
 U32 = 0xFFFFFFFF
 EMPTY_HI = U32   # empty table slot / invalid candidate (sorts last)
 EMPTY32 = U32    # invalid compact key
+EMPTY64 = (1 << 63) - 1  # invalid 60-bit key code (sorts last)
 
 # box margin beyond max_range around the window's sensor positions
 BOX_MARGIN_VOXELS = 2
+
+
+def pack_keys(
+    keys: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, 3) int voxel keys -> (hi, lo, in_range) voxel codes.
+
+    hi = x20 << 12 | y20 >> 8, lo = (y20 & 0xFF) << 20 | z20 (bits 28-31
+    zero).  The all-ones x plane is out of range, so hi == EMPTY_HI is
+    unreachable.  Out-of-range keys give a meaningless code; mask with
+    ``in_range``.
+    """
+    b = keys.to(torch.int64) + _BIAS
+    in_range = ((b >= 0) & (b <= _AXIS_MAX)).all(dim=-1)
+    in_range = in_range & (b[..., 0] < _AXIS_MAX)
+    # the u32 words of the JAX package, out-of-range codes included
+    x, y, z = b[..., 0] & U32, b[..., 1] & U32, b[..., 2] & U32
+    hi = ((x << 12) & U32) | (y >> 8)
+    lo = (((y & 0xFF) << 20) | z) & U32
+    return hi, lo, in_range
+
+
+def unpack_keys(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_keys -> (N, 3) int64 voxel keys (undefined for
+    EMPTY_HI)."""
+    x = hi >> 12
+    y = ((hi & 0xFFF) << 8) | (lo >> 20)
+    z = lo & 0xFFFFF
+    return torch.stack([x, y, z], dim=-1) - _BIAS
+
+
+def key_code(hi: torch.Tensor, lo: torch.Tensor, brick: bool) -> torch.Tensor:
+    """The 60-bit int64 code of two-word keys, in (hi, lo) order: lo's free
+    4 bits (the low ones of a brick code, the high ones of a voxel code)
+    are dropped."""
+    return (hi << 28) | ((lo >> 4) if brick else lo)
+
+
+def code_words(code: torch.Tensor, brick: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of key_code -> (hi, lo)."""
+    lo = code & ((1 << 28) - 1)
+    return code >> 28, (lo << 4) if brick else lo
 
 
 def brick_layout(brick_bits: int):

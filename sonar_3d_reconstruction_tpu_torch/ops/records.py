@@ -1,5 +1,5 @@
 """Frame records: the state-independent half of the map update (PyTorch port
-of ``sonar_3d_reconstruction_tpu.ops.records``, compact box-key path).
+of ``sonar_3d_reconstruction_tpu.ops.records``).
 
 A frame's contribution to the map is its unique-voxel records plus a few
 reductions (bounds, range check).  They need only the ping and its pose,
@@ -9,7 +9,7 @@ entirely in the window apply.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -20,9 +20,16 @@ from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
 )
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
     CompactRecords,
+    UniqueRecords,
+    dedup_frame,
     dedup_frame_compact,
 )
-from sonar_3d_reconstruction_tpu_torch.ops.packing import EMPTY32, pack_box_keys
+from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+    EMPTY32,
+    pack_box_keys,
+    pack_brick_keys,
+    pack_keys,
+)
 
 
 class FrameAux(NamedTuple):
@@ -39,34 +46,48 @@ def frame_records(
     T_sonar_to_world: torch.Tensor,
     tables: FanTables,
     cfg: MapperConfig,
-    box_min: torch.Tensor,
-    box_bits: Tuple[int, int, int],
+    box_min: Optional[torch.Tensor],
+    box_bits: Optional[Tuple[int, int, int]],
     brick_bits: int,
     dtype: torch.dtype = torch.float32,
     raw: bool = False,
-) -> Tuple[CompactRecords, FrameAux]:
-    """One ping -> (CompactRecords, FrameAux) with box-relative keys.
+) -> Tuple[Union[CompactRecords, UniqueRecords], FrameAux]:
+    """One ping -> (records, FrameAux).
 
-    A candidate outside the box reports through ``range_fail`` (the host
-    gate ``compute_window_boxes`` makes that impossible for its boxes).
+    With a box (``box_min``, ``box_bits``) the records are CompactRecords
+    with box-relative keys, and a candidate outside the box reports through
+    ``range_fail`` (the host gate ``compute_window_boxes`` makes that
+    impossible for its boxes).  Without one (``box_min=None``) they are
+    UniqueRecords with two-word keys: brick codes when ``brick_bits`` > 0,
+    voxel codes (the hash backend's) when it is 0; a candidate outside the
+    packable range reports through ``range_fail``.
 
-    ``raw=True`` skips the per-frame dedup: every valid candidate is its
-    own record with payload ``1 << 16 | occ``, in the lane the candidate
-    lattice gave it (valid records are NOT a prefix), and ``n_unique`` is
-    the valid count.  Only the raw window apply (``bin_apply_raw``, which
-    sums records per slot) may consume them.
+    ``raw=True`` (box keys only) skips the per-frame dedup: every valid
+    candidate is its own record with payload ``1 << 16 | occ``, in the
+    lane the candidate lattice gave it (valid records are NOT a prefix),
+    and ``n_unique`` is the valid count.  Only the raw window apply
+    (``bin_apply_raw``, which sums records per slot) may consume them.
     """
+    if raw and box_min is None:
+        raise ValueError("raw records need box keys")
     cand = backproject_ping(image, T_sonar_to_world, tables, cfg, dtype=dtype)
     device = image.device
     res = torch.full((), cfg.voxel_resolution, dtype=dtype, device=device)
 
     # a true division, as in the reference's floor(p / res) keying
     keys = torch.floor(cand["points"] / res).to(torch.int32)
-    bkey, in_range = pack_box_keys(keys, box_min, box_bits, brick_bits)
+    if box_min is not None:
+        bkey, in_range = pack_box_keys(keys, box_min, box_bits, brick_bits)
+    elif brick_bits:
+        hi, lo, in_range = pack_brick_keys(keys, brick_bits)
+    else:
+        hi, lo, in_range = pack_keys(keys)
     valid = cand["valid"]
     range_fail = (valid & ~in_range).any()
     valid = valid & in_range
-    if raw:
+    if box_min is None:
+        rec = dedup_frame(hi, lo, cand["is_occupied"], valid, brick_bits > 0)
+    elif raw:
         occ = cand["is_occupied"].to(torch.int64)
         rec = CompactRecords(
             key=torch.where(valid, bkey, EMPTY32),

@@ -1,51 +1,67 @@
-"""Ping-sequence pipeline, brick backend (PyTorch port of the brick path of
-``sonar_3d_reconstruction_tpu.pipeline``).
+"""Ping-sequence pipeline (PyTorch port of
+``sonar_3d_reconstruction_tpu.pipeline``: the brick and hash backends).
 
 ``map_ping_sequence`` maps a recorded sequence window by window: per ping,
-records (ops/records.py); per window, one apply to the brick map
-(grid/brick.py) through the binning kernel K1.  The host loop is eager;
-each window syncs a few sizes (the largest frame's unique count, the
-window's lanes and bricks, its failure flags) to size its tensors from the
-actual counts.
+records (ops/records.py); per window, one apply to the map.  The host loop
+is eager; each window syncs a few sizes (the largest frame's unique count,
+the window's lanes and bricks or voxels, its failure flags) to size its
+tensors from the actual counts.
 
-``dense_mode="pallas"`` (the default) dedups each ping's candidates into
-unique records; ``"pallas-raw"`` skips the per-ping dedup and hands every
-candidate to K1's raw form, which sums them per slot: the same map and
-per-ping unique stats, from more record lanes.
+Brick backend (grid/brick.py, through the binning kernel K1).  A sequence
+whose every window fits compact box keys (``compute_window_boxes``) takes
+them; otherwise every window takes two-word brick codes, as in the JAX
+package.  ``dense_mode="pallas"`` (the default) dedups each ping's
+candidates into unique records; ``"pallas-raw"`` skips the per-ping dedup
+and hands every candidate to K1's raw form, which sums them per slot: the
+same map and per-ping unique stats, from more record lanes.  Raw records
+need box keys, so wide windows take unique records in either mode.
+
+Hash backend (grid/hash.py): window 1 applies each ping with
+``update_hash_grid``; a larger window applies its pings' voxel-code
+records with ``apply_records_batched``.
 
 The map grows on demand: a window that would overflow a table bucket is
-rejected whole, the table doubles (``rehash_bricks``) and the sequence
-replays from that window.  Keys outside the packable range and voxels with
-2^16+ emissions in one frame are fatal (ValueError), as growth cannot fix
-them.
+rejected whole, the table doubles (``rehash_bricks`` / ``rehash``) and the
+sequence replays from that window.  Keys outside the packable range and,
+in the brick backend, voxels with 2^16+ emissions in one frame are fatal
+(ValueError), as growth cannot fix them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
-from sonar_3d_reconstruction_tpu_torch.device import require_cuda
+from sonar_3d_reconstruction_tpu_torch.device import require_cuda, to_device
 from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
 from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     BrickGridState,
     apply_brick_records_compact,
+    apply_brick_records_wide,
     init_brick_grid,
     is_raw_mode,
     rehash_bricks,
 )
+from sonar_3d_reconstruction_tpu_torch.grid.hash import (
+    HashGridState,
+    apply_records_batched,
+    init_hash_grid,
+    rehash,
+    update_hash_grid,
+)
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     FanTables,
+    backproject_ping,
     resolve_capped_tables,
 )
-from sonar_3d_reconstruction_tpu_torch.ops.dedup import CompactRecords
+from sonar_3d_reconstruction_tpu_torch.ops.dedup import CompactRecords, UniqueRecords
 from sonar_3d_reconstruction_tpu_torch.ops.packing import compute_window_boxes
 from sonar_3d_reconstruction_tpu_torch.ops.records import FrameAux, frame_records
 
-# per-ping stats and their host dtypes
+# per-ping stats of each backend and their host dtypes
 STAT_DTYPES = {
     "num_occupied": np.int64,
     "num_free": np.int64,
@@ -56,33 +72,62 @@ STAT_DTYPES = {
     "batch_n_bricks": np.int64,
     "batch_n_lanes": np.int64,
 }
+HASH_STAT_DTYPES = {
+    "num_occupied": np.int64,
+    "num_free": np.int64,
+    "num_candidates": np.int64,
+    "overflowed": bool,
+    "range_fail": bool,
+    "batch_n_unique": np.int64,
+}
 
 DEFAULT_BRICK_CAPACITY = 1 << 15
+DEFAULT_HASH_CAPACITY = 1 << 20
 # table doublings one sequence may need before mapping gives up
 MAX_GROW_RETRIES = 12
+
+_STATE_TYPES = {"brick": BrickGridState, "hash": HashGridState}
+
+MapState = Union[BrickGridState, HashGridState]
+
+
+def check_state_backend(state, backend: str) -> None:
+    """ValueError when a resumed map ``state`` is not of ``backend``'s type
+    (the records' key layout follows the backend, so a mismatch would
+    write voxels through the wrong key interpretation)."""
+    expected = _STATE_TYPES[backend]
+    if state is not None and not isinstance(state, expected):
+        raise ValueError(
+            f"map state {type(state).__name__} does not match "
+            f"backend={backend!r} (expected {expected.__name__}); pass the "
+            f"matching backend= when resuming a saved map"
+        )
 
 
 def _window_records(
     images: torch.Tensor,
     transforms: torch.Tensor,
     frames: range,
-    box_min: np.ndarray,
+    box_min: Optional[np.ndarray],
     *,
     tables: FanTables,
     cfg: MapperConfig,
     dtype: torch.dtype,
-    box_bits: Tuple[int, int, int],
+    box_bits: Optional[Tuple[int, int, int]],
     brick_bits: int,
     dense_mode: str = "pallas",
-) -> Tuple[CompactRecords, FrameAux]:
-    """Records of a window's frames, stacked along a leading frame axis.
+) -> Tuple[Union[CompactRecords, UniqueRecords], FrameAux]:
+    """Records of a window's frames, stacked along a leading frame axis:
+    compact box keys with a box, two-word keys without one (brick codes
+    when ``brick_bits`` > 0, voxel codes when it is 0).
 
     Unique records are a prefix of their lanes and are cut to the widest
-    frame's unique count (one sync).  Raw candidates sit wherever the
-    candidate lattice put them, so they keep their full width: a cut would
-    drop valid candidates."""
-    raw = is_raw_mode(dense_mode)
-    box_min_t = torch.as_tensor(box_min, device=images.device)
+    frame's unique count (one sync).  Raw candidates (box keys only) sit
+    wherever the candidate lattice put them, so they keep their full
+    width: a cut would drop valid candidates."""
+    raw = is_raw_mode(dense_mode) and box_min is not None
+    box_min_t = (None if box_min is None
+                 else torch.as_tensor(box_min, device=images.device))
     outs = [
         frame_records(
             images[i], transforms[i], tables, cfg, box_min_t, box_bits,
@@ -90,14 +135,24 @@ def _window_records(
         )
         for i in frames
     ]
-    recs = CompactRecords(*(torch.stack(x) for x in zip(*(r for r, _ in outs))))
+    kind = type(outs[0][0])
+    recs = kind(*(torch.stack(x) for x in zip(*(r for r, _ in outs))))
     auxs = FrameAux(*(torch.stack(x) for x in zip(*(a for _, a in outs))))
     if raw:
         return recs, auxs
     width = max(1, int(recs.n_unique.max()))
-    return recs._replace(
-        key=recs.key[:, :width], payload=recs.payload[:, :width]
-    ), auxs
+    return kind(*(x[:, :width] if x.dim() == 2 else x for x in recs)), auxs
+
+
+def _record_stats(stats, win, w0: int, w1: int) -> bool:
+    """Copy one window's stats into the sequence's host arrays; whether it
+    failed, in which case every later ping reports ``overflowed``."""
+    for k, v in win.items():
+        stats[k][w0:w1] = v.cpu().numpy()
+    if stats["overflowed"][w0]:
+        stats["overflowed"][w1:] = True
+        return True
+    return False
 
 
 def scan_pings_brick(
@@ -117,31 +172,68 @@ def scan_pings_brick(
     stats (P,) on the host).
 
     ``boxes`` = (box_mins (n_windows, 3), box_bits) from
-    ``compute_window_boxes`` over the partition ``range(0, P, window)``;
-    ``start`` is a window boundary.  The scan stops at the first failed
-    window: it and every later ping report ``overflowed`` and the returned
-    state is poisoned, with nothing of the failed window applied.
+    ``compute_window_boxes`` over the partition ``range(0, P, window)``, or
+    None for two-word brick codes in every window; ``start`` is a window
+    boundary.  The scan stops at the first failed window: it and every
+    later ping report ``overflowed`` and the returned state is poisoned,
+    with nothing of the failed window applied.
     """
     P = images.shape[0]
     if start % window:
         raise ValueError(f"start {start} is not a multiple of window {window}")
-    box_mins, box_bits = boxes
+    box_mins, box_bits = (None, None) if boxes is None else boxes
     stats = {k: np.zeros(P, dt) for k, dt in STAT_DTYPES.items()}
     for w0 in range(start, P, window):
         w1 = min(w0 + window, P)
+        box_min = None if boxes is None else box_mins[w0 // window]
         recs, auxs = _window_records(
-            images, transforms, range(w0, w1), box_mins[w0 // window],
+            images, transforms, range(w0, w1), box_min,
             tables=tables, cfg=cfg, dtype=dtype, box_bits=box_bits,
             brick_bits=state.brick_bits, dense_mode=dense_mode,
         )
-        state, win = apply_brick_records_compact(
-            state, recs, auxs, cfg, box_mins[w0 // window], box_bits,
-            dense_mode=dense_mode,
-        )
-        for k, v in win.items():
-            stats[k][w0:w1] = v.cpu().numpy()
-        if stats["overflowed"][w0]:
-            stats["overflowed"][w1:] = True
+        if boxes is None:
+            state, win = apply_brick_records_wide(state, recs, auxs, cfg)
+        else:
+            state, win = apply_brick_records_compact(
+                state, recs, auxs, cfg, box_min, box_bits,
+                dense_mode=dense_mode,
+            )
+        if _record_stats(stats, win, w0, w1):
+            break
+    return state, stats
+
+
+def scan_pings_hash(
+    state: HashGridState,
+    images: torch.Tensor,
+    transforms: torch.Tensor,
+    start: int = 0,
+    *,
+    tables: FanTables,
+    cfg: MapperConfig,
+    dtype: torch.dtype,
+    window: int,
+) -> Tuple[HashGridState, Dict[str, np.ndarray]]:
+    """Apply pings [start, P) to the hash map: one ``update_hash_grid`` a
+    ping when ``window`` is 1, else one ``apply_records_batched`` a window
+    of voxel-code records.  Returns and stops as ``scan_pings_brick``."""
+    P = images.shape[0]
+    if start % window:
+        raise ValueError(f"start {start} is not a multiple of window {window}")
+    stats = {k: np.zeros(P, dt) for k, dt in HASH_STAT_DTYPES.items()}
+    for w0 in range(start, P, window):
+        w1 = min(w0 + window, P)
+        if window == 1:
+            cand = backproject_ping(images[w0], transforms[w0], tables, cfg,
+                                    dtype=dtype)
+            state, win = update_hash_grid(state, cand, cfg)
+        else:
+            recs, auxs = _window_records(
+                images, transforms, range(w0, w1), None, tables=tables,
+                cfg=cfg, dtype=dtype, box_bits=None, brick_bits=0,
+            )
+            state, win = apply_records_batched(state, recs, auxs, cfg)
+        if _record_stats(stats, win, w0, w1):
             break
     return state, stats
 
@@ -154,50 +246,55 @@ def map_ping_sequence(
     *,
     device=None,
     backend: str = "brick",
-    state: Optional[BrickGridState] = None,
+    state: Optional[MapState] = None,
     dtype: torch.dtype = torch.float32,
     window: int = 1,
     dense_mode: str = "pallas",
     tables: Optional[FanTables] = None,
-) -> Tuple[BrickGridState, Dict[str, np.ndarray]]:
+) -> Tuple[MapState, Dict[str, np.ndarray]]:
     """Map a whole recorded ping sequence on ``device``: the first CUDA
     device when it is None (RuntimeError where there is none; pass "cpu"
     to map on the CPU).
 
     ``images`` (P, range_bins, bearing_bins) polar intensity images;
     ``positions`` (P, 3) and ``quaternions`` (P, 4) xyzw odometry poses.
-    ``state`` resumes an existing map (default: a fresh one of
-    ``DEFAULT_BRICK_CAPACITY`` bricks on ``device``).  Only the brick
-    backend over compact box keys is ported; a survey whose per-window
-    extent needs wider keys raises ValueError.  ``dense_mode`` is
-    ``"pallas"`` (per-ping dedup, unique records) or ``"pallas-raw"`` (raw
-    candidates summed by the kernel); both give the same map.  ``tables``
-    are the fan tables of the images' geometry (default: built with every
-    lattice cap sized for these images); a caller that maps many short
-    sequences of one geometry passes its own, so they are built once.
+    ``backend`` is ``"brick"`` (the default) or ``"hash"``.  ``state``
+    resumes an existing map of that backend (default: a fresh one of
+    ``DEFAULT_BRICK_CAPACITY`` bricks or ``DEFAULT_HASH_CAPACITY`` slots
+    on ``device``).  ``dense_mode`` (brick only) is ``"pallas"`` (per-ping
+    dedup, unique records) or ``"pallas-raw"`` (raw candidates summed by
+    the kernel); both give the same map.  ``tables`` are the fan tables of
+    the images' geometry (default: built with every lattice cap sized for
+    these images); a caller that maps many short sequences of one geometry
+    passes its own, so they are built once.
 
     Returns (final state, per-ping stats: ``num_occupied`` / ``num_free``
     unique voxels by type, ``num_candidates`` valid emissions,
     ``overflowed`` and the failure causes, the window sizes).
     """
     cfg = cfg or MapperConfig()
-    if backend != "brick":
-        raise ValueError(f"backend {backend!r} is not ported; use 'brick'")
+    if backend not in _STATE_TYPES:
+        raise ValueError(f"backend {backend!r} is not ported; use 'brick' "
+                         f"or 'hash'")
+    check_state_backend(state, backend)
     is_raw_mode(dense_mode)
     # canonical form ("cuda" -> "cuda:0"), as tensors report their device
     device = (require_cuda() if device is None
               else torch.empty(0, device=device).device)
     if state is None:
-        state = init_brick_grid(DEFAULT_BRICK_CAPACITY, dtype, device)
+        state = (init_brick_grid(DEFAULT_BRICK_CAPACITY, dtype, device)
+                 if backend == "brick"
+                 else init_hash_grid(DEFAULT_HASH_CAPACITY, dtype, device))
     if state.log_odds.device != device or state.log_odds.dtype != dtype:
         raise ValueError(
             f"state is {state.log_odds.dtype} on {state.log_odds.device}, "
             f"not {dtype} on {device}"
         )
+    stat_dtypes = STAT_DTYPES if backend == "brick" else HASH_STAT_DTYPES
     images = np.asarray(images)
     P, R, B = images.shape
     if P == 0:
-        return state, {k: np.zeros(0, dt) for k, dt in STAT_DTYPES.items()}
+        return state, {k: np.zeros(0, dt) for k, dt in stat_dtypes.items()}
 
     if tables is None:
         tables = resolve_capped_tables(images, cfg, R, B)
@@ -208,25 +305,23 @@ def map_ping_sequence(
         )
     T = batched_sonar_to_world(positions, quaternions, cfg)
     window = min(max(window, 1), P)
-    boxes = compute_window_boxes(
-        T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, window,
-        state.brick_bits, frame_bits=max(1, (window - 1).bit_length()),
-    )
-    if boxes is None:
-        raise ValueError(
-            "the survey's per-window extent does not fit 31-bit box keys; "
-            "the wide two-word key path is not ported"
-        )
-    images_dev = torch.as_tensor(images, device=device)
+    images_dev = to_device(images, device)
     T_dev = torch.as_tensor(T, device=device).to(dtype)
+    kw = dict(tables=tables, cfg=cfg, dtype=dtype, window=window)
+    if backend == "brick":
+        # box keys only if every window fits them, as in the JAX package
+        kw.update(dense_mode=dense_mode, boxes=compute_window_boxes(
+            T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, window,
+            state.brick_bits, frame_bits=max(1, (window - 1).bit_length()),
+        ))
+        scan, grow = scan_pings_brick, rehash_bricks
+    else:
+        scan, grow = scan_pings_hash, rehash
 
-    merged = {k: np.zeros(P, dt) for k, dt in STAT_DTYPES.items()}
+    merged = {k: np.zeros(P, dt) for k, dt in stat_dtypes.items()}
     start = 0
     for _ in range(MAX_GROW_RETRIES):
-        new_state, stats = scan_pings_brick(
-            state, images_dev, T_dev, start, tables=tables, cfg=cfg,
-            dtype=dtype, window=window, boxes=boxes, dense_mode=dense_mode,
-        )
+        new_state, stats = scan(state, images_dev, T_dev, start, **kw)
         over = stats["overflowed"]
         applied_hi = int(np.argmax(over)) if over.any() else P
         for k, v in stats.items():
@@ -239,12 +334,12 @@ def map_ping_sequence(
                 f"frame >= {start}: voxel keys outside the packable range "
                 "— check odometry frame offsets; growth cannot fix this"
             )
-        if stats["pack_overflow"][start:].any():
+        if backend == "brick" and stats["pack_overflow"][start:].any():
             raise ValueError(
                 f"frame >= {start}: a voxel received 2^16+ emissions in one "
                 "frame (count packing width)"
             )
-        state = rehash_bricks(new_state, new_state.capacity * 2)
+        state = grow(new_state, new_state.capacity * 2)
     raise RuntimeError(
-        f"brick growth did not converge after {MAX_GROW_RETRIES} retries"
+        f"{backend} growth did not converge after {MAX_GROW_RETRIES} retries"
     )

@@ -1,19 +1,20 @@
 """Streaming runtime: bag replay -> time sync -> chunked mapping (PyTorch
-port of ``sonar_3d_reconstruction_tpu.stream``, brick backend).
+port of ``sonar_3d_reconstruction_tpu.stream``, brick and hash backends).
 
 The ROS-free equivalent of the reference node's ingest loop
 (scripts/3d_mapper_node.py:191-357): pair the sonar-image and odometry
 streams with the ±slop approximate time synchronizer, decode images, and
 map the paired pings in chunks, each chunk one call of
-``pipeline.map_ping_sequence`` into the stream's map (window by window,
-through the binning kernel K1).  A chunk is mapped as it is: eager PyTorch
-needs no padding to a static chunk, and growth with replay happens inside
-``map_ping_sequence``.
+``pipeline.map_ping_sequence`` into the stream's map (window by window;
+the brick backend through the binning kernel K1).  A chunk is mapped as it
+is: eager PyTorch needs no padding to a static chunk, and growth with
+replay happens inside ``map_ping_sequence``.
 
 A ``publish`` callback fires at the configured rate in STREAM TIME (the
 reference publishes on a 10 Hz wall timer decoupled from ingest,
 node:227-231); offline replay maps that to bag timestamps.  Each tick
-extracts the occupied voxels of the whole map (``extract_occupied_brick``).
+extracts the occupied voxels of the whole map (``extract_occupied_brick``
+or ``extract_occupied_hash``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     init_brick_grid,
     is_raw_mode,
 )
+from sonar_3d_reconstruction_tpu_torch.grid.hash import (
+    extract_occupied_hash,
+    init_hash_grid,
+)
 from sonar_3d_reconstruction_tpu_torch.io.bag import ImageMsg, OdometryMsg
 from sonar_3d_reconstruction_tpu_torch.io.image import decode_image
 from sonar_3d_reconstruction_tpu_torch.io.pointcloud import serialize_pointcloud2
@@ -46,7 +51,7 @@ from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
 from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
 # backends of the JAX stream and the ROADMAP items that port them
-_NOT_PORTED = {"hash": 16, "brick-sharded": 18}
+_NOT_PORTED = {"brick-sharded": 18}
 
 # the candidate-lattice caps the stream grows, and what each pings need
 _CAP_NEEDS = {"fan": required_fan_cap, "window": required_window_cap,
@@ -105,8 +110,8 @@ class StreamStats:
 
 
 class StreamingMapper:
-    """Chunked streaming front end over the brick map on ``device``: the
-    first CUDA device when None (RuntimeError where there is none; pass
+    """Chunked streaming front end over a brick or hash map on ``device``:
+    the first CUDA device when None (RuntimeError where there is none; pass
     "cpu" to map on the CPU).
 
     Feed pings/poses in any interleaving (``on_ping`` / ``on_pose``), or a
@@ -117,12 +122,13 @@ class StreamingMapper:
 
     The fan, window and free caps that size the candidate lattice grow to
     the largest the pings seen so far need, never shrinking, so the
-    memoised fan tables are rebuilt only when a cap grows.  ``dense_mode`` is
-    ``"pallas"`` or ``"pallas-raw"`` as in ``map_ping_sequence``.  Only the
-    brick backend is ported.  A chunk whose window extent does not fit the
-    compact box keys raises the ValueError of ``map_ping_sequence`` (the
-    JAX stream falls back to wide keys there, ROADMAP item 15); a failed
-    chunk's frames are dropped and the map stays as it was before it.
+    memoised fan tables are rebuilt only when a cap grows.  ``backend`` is
+    ``"brick"`` (the default; the JAX stream's is ``"hash"``) or ``"hash"``,
+    and ``dense_mode`` (brick) is ``"pallas"`` or ``"pallas-raw"``, as in
+    ``map_ping_sequence``.  A chunk takes compact box keys when all of its
+    windows fit them and two-word keys otherwise.  A chunk that fails (keys
+    outside the packable range) raises; its frames are dropped and the map
+    stays as it was before it.
     """
 
     def __init__(
@@ -142,9 +148,9 @@ class StreamingMapper:
         if backend in _NOT_PORTED:
             raise ValueError(
                 f"backend {backend!r} is not ported yet (ROADMAP item "
-                f"{_NOT_PORTED[backend]}); use 'brick'"
+                f"{_NOT_PORTED[backend]}); use 'brick' or 'hash'"
             )
-        if backend != "brick":
+        if backend not in ("brick", "hash"):
             raise ValueError(f"unknown backend {backend!r}")
         is_raw_mode(dense_mode)
         self.cfg = cfg or MapperConfig()
@@ -157,10 +163,13 @@ class StreamingMapper:
         self.dense_mode = dense_mode
         self.device = (require_cuda() if device is None
                        else torch.empty(0, device=device).device)
-        # capacity counts BRICKS (~1/30 of voxels on realistic surveys)
-        self.state = init_brick_grid(
-            max(128, initial_capacity >> 4), dtype, self.device
-        )
+        if backend == "hash":
+            self.state = init_hash_grid(initial_capacity, dtype, self.device)
+        else:
+            # capacity counts BRICKS (~1/30 of voxels on realistic surveys)
+            self.state = init_brick_grid(
+                max(128, initial_capacity >> 4), dtype, self.device
+            )
         self.stats = StreamStats()
         self._tables: Optional[FanTables] = None
         self._caps = dict.fromkeys(_CAP_NEEDS, 0)
@@ -257,8 +266,8 @@ class StreamingMapper:
         t0 = time.perf_counter()
         self.state, _ = map_ping_sequence(
             images, positions, quats, self.cfg, device=self.device,
-            state=self.state, dtype=self.dtype, window=self.window,
-            dense_mode=self.dense_mode, tables=tables,
+            backend=self.backend, state=self.state, dtype=self.dtype,
+            window=self.window, dense_mode=self.dense_mode, tables=tables,
         )
         # map_ping_sequence copied the last window's stats to the host,
         # which waited for the device: `done` is a commit time
@@ -284,7 +293,9 @@ class StreamingMapper:
 
     # -- extraction -----------------------------------------------------
     def pointcloud_msg(self, stamp: float = 0.0) -> Dict:
-        points, probs = extract_occupied_brick(self.state, self.cfg)
+        extract = (extract_occupied_hash if self.backend == "hash"
+                   else extract_occupied_brick)
+        points, probs = extract(self.state, self.cfg)
         sec = int(stamp)
         nanosec = int(round((stamp - sec) * 1e9))
         if nanosec >= 1_000_000_000:  # rounding carry: nanosec must be < 1e9

@@ -262,13 +262,34 @@ def test_config_module_matches_jax(tmp_path):
         t_config.config_from_dict({"sonar_position": [1, 2]})
 
 
-@pytest.mark.parametrize("backend,item", [("hash", 16), ("dense", 17),
+@pytest.mark.parametrize("backend,item", [("dense", 17),
                                           ("brick-sharded", 18)])
 def test_other_backends_are_refused(backend, item):
     with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
         SonarMapper(backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         SonarMapper(backend="octree", device="cpu")
+
+
+def test_hash_backend_maps_like_the_brick_backend(small_cfg):
+    """backend="hash" (the JAX mapper's default) maps: per-ping stats,
+    touched voxels and log-odds equal the brick mapper's, in float64
+    (against the JAX hash mapper: tests/test_torch_hash.py)."""
+    from sonar_3d_reconstruction_tpu_torch.grid.hash import touched_voxels_hash
+
+    cfg = port_cfg(small_cfg)
+    images, positions, quats = survey(small_cfg, 3, seed=78)
+    h = SonarMapper(cfg, backend="hash", dtype=torch.float64, device="cpu")
+    b = SonarMapper(cfg, dtype=torch.float64, device="cpu")
+    assert h.backend == "hash" and b.backend == "brick"
+    for x in zip(images, positions, quats):
+        assert (without_times(h.process_sonar_image(*x))
+                == without_times(b.process_sonar_image(*x)))
+    keys, lo = touched_voxels_hash(h.state)
+    b_keys, b_lo = touched_voxels_brick(b.state)
+    order, b_order = np.lexsort(keys.T), np.lexsort(b_keys.T)
+    np.testing.assert_array_equal(keys[order], b_keys[b_order])
+    np.testing.assert_array_equal(lo[order], b_lo[b_order])
 
 
 def test_mapper_runs_on_the_card_unless_told():

@@ -119,16 +119,21 @@ def test_ingest_through_synchronizer_and_publish(node_env):
     assert (xyzi[:, 3] > 0.6).all()
 
 
-def test_map_backend_brick_default_and_hash_refused(node_env):
-    """map_backend defaults to the brick map; "hash" is refused by its
-    ROADMAP item, never mapped some other way."""
-    node = _make_node(node_env)
-    assert node.mapper.backend == "brick"
-    _deliver(node, synthetic_ping(32, 24, seed=77), (0, 0, 0), 60.0, 0.02)
-    assert node.mapper.frame_count == 1
-    assert node.mapper.get_point_cloud()["num_occupied"] > 0
-    with pytest.raises(ValueError, match="ROADMAP item 16"):
-        _make_node(node_env, map_backend="hash")
+def test_map_backend_brick_default_and_hash_accepted(node_env):
+    """map_backend defaults to the brick map; "hash" maps the same pair to
+    the same occupied voxels; another name is refused."""
+    clouds = []
+    for extra in ({}, {"map_backend": "hash"}):
+        node = _make_node(node_env, **extra)
+        assert node.mapper.backend == extra.get("map_backend", "brick")
+        _deliver(node, synthetic_ping(32, 24, seed=77), (0, 0, 0), 60.0, 0.02)
+        assert node.mapper.frame_count == 1
+        clouds.append(node.mapper.get_point_cloud()["points"])
+    assert len(clouds[0]) > 0
+    np.testing.assert_array_equal(np.sort(clouds[0], axis=0),
+                                  np.sort(clouds[1], axis=0))
+    with pytest.raises(ValueError, match="unknown backend"):
+        _make_node(node_env, map_backend="octree")
 
 
 def test_node_needs_the_card_unless_told(node_env):

@@ -311,7 +311,12 @@ def test_map_ping_sequence_rejects_what_it_does_not_map(small_cfg):
     images, positions, quats = make_seq(small_cfg, 2, seed=65)
     with pytest.raises(ValueError, match="not ported"):
         pipeline.map_ping_sequence(images, positions, quats, cfg,
-                                   device="cpu", backend="hash")
+                                   device="cpu", backend="dense")
+    with pytest.raises(ValueError, match="does not match backend='hash'"):
+        pipeline.map_ping_sequence(
+            images, positions, quats, cfg, device="cpu", backend="hash",
+            state=init_brick_grid(256, torch.float32, "cpu"),
+        )
     with pytest.raises(ValueError, match="float64"):
         pipeline.map_ping_sequence(
             images, positions, quats, cfg, device="cpu", dtype=torch.float32,
@@ -375,8 +380,9 @@ def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
 
 def test_port_runs_with_jax_blocked():
     """The port and its CPU path import neither jax nor the JAX package:
-    the main path, every module of the port (the stream, the node and the
-    debug overlay included), a stream over the same pings, and the CLI's
+    the main path, the hash backend (pipeline, snapshot, mapper), wide
+    keys, every module of the port (the stream, the node and the debug
+    overlay included), a stream over the same pings, and the CLI's
     selftest."""
     code = textwrap.dedent("""
         import sys
@@ -406,6 +412,32 @@ def test_port_runs_with_jax_blocked():
                                           window=2, dense_mode="pallas-raw")
         assert torch.equal(r_st.log_odds, st.log_odds)
         assert (r_stats["num_occupied"] == stats["num_occupied"]).all()
+        import os, tempfile
+        from sonar_3d_reconstruction_tpu_torch.grid.hash import (
+            extract_occupied_hash, touched_voxels_hash)
+        from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
+            load_map, save_map)
+        h_st, h_stats = map_ping_sequence(images, pos, q, cfg, device="cpu",
+                                          window=2, backend="hash")
+        h_pts, _ = extract_occupied_hash(h_st, cfg)
+        assert (h_stats["num_occupied"] == stats["num_occupied"]).all()
+        assert sorted(map(tuple, h_pts)) == sorted(map(tuple, pts))
+        snap = os.path.join(tempfile.mkdtemp(), "h.npz")
+        save_map(snap, h_st, cfg)
+        l_st, _ = load_map(snap, device="cpu")
+        assert int(l_st.used) == int(h_st.used)
+        far = pos.copy()
+        far[2] = [3000.0, 3000.0, 0.0]  # a window too wide for box keys
+        w_st, w_stats = map_ping_sequence(images, far, q, cfg, device="cpu",
+                                          window=3)
+        wh_st, _ = map_ping_sequence(images, far, q, cfg, device="cpu",
+                                     window=3, backend="hash")
+        assert int(w_st.used) == int(wh_st.used) > int(st.used)
+        from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+        hm = SonarMapper(cfg, backend="hash", device="cpu")
+        for i in range(3):
+            hm.process_sonar_image(images[i], pos[i], q[i])
+        assert hm.num_voxels == int(h_st.used)
         import runpy
         from sonar_3d_reconstruction_tpu_torch import cli, config
         from sonar_3d_reconstruction_tpu_torch.io import (

@@ -1,4 +1,5 @@
-"""The port's streaming runtime against the JAX package's brick stream.
+"""The port's streaming runtime against the JAX package's brick stream
+(the hash stream against the JAX one: tests/test_torch_hash.py).
 
 Both streams replay the same bags (numpy seeds, small geometry).  Maps are
 compared voxel by voxel in extraction order (slots may differ); the pairing
@@ -105,15 +106,22 @@ def assert_states_equal(a, b):
 @pytest.fixture(scope="module")
 def survey(tmp_path_factory):
     """An 8-ping bag at 2 Hz and the JAX brick stream's run over it: chunk
-    3, window 3, a 16-brick table (so it grows), float64, publishing at
-    2 Hz of stream time."""
+    3, window 3, float64, publishing at 2 Hz of stream time.
+
+    Every xdist worker that takes a test of this module runs this fixture,
+    so the JAX stream compiles one set of programs: a table that never
+    grows (8,192 bricks) and the worst-case lattice caps, which map
+    exactly as the grown caps do.  Growth and cap growth are the port's to
+    show (the tests below start it from 8 and 16 bricks); the JAX run is
+    the map they are held to."""
     cfg = SMALL_CFG
     path, images, positions, quats = make_bag(
         tmp_path_factory.mktemp("stream") / "survey.db3", cfg, 8,
         seed=100, rate_hz=2.0,
     )
     j_sm, j_pub = jax_stream(cfg, path, rate=2.0, chunk_size=3,
-                             window=3, initial_capacity=1 << 8)
+                             window=3, initial_capacity=1 << 17,
+                             fan_cap=None, window_cap=None, free_cap=None)
     return dict(path=path, images=images, positions=positions, quats=quats,
                 jax=j_sm, jax_published=j_pub)
 
@@ -244,7 +252,7 @@ def test_stream_recovers_after_failed_chunk(small_cfg):
                    initial_capacity=1 << 12)
     _pair(sm, img, [0.0, 0.0, 0.0], 1000.0)
     before = brick_state_to_numpy(sm.state)
-    with pytest.raises(ValueError, match="31-bit box keys"):
+    with pytest.raises(ValueError, match="packable range"):
         _pair(sm, img, [1.0e7, 0.0, 0.0], 1001.0)
     np.testing.assert_equal(brick_state_to_numpy(sm.state), before)
     assert not sm._chunk_images
@@ -254,27 +262,35 @@ def test_stream_recovers_after_failed_chunk(small_cfg):
     assert int(sm.state.used) > int(before["used"])
 
 
-def test_stream_refuses_surveys_too_wide_for_box_keys(small_cfg):
-    """A chunk whose window spans more than the compact box keys hold
-    raises map_ping_sequence's ValueError (the wide-key path is ROADMAP
-    item 15), and the map is left as it was."""
+def test_stream_maps_surveys_too_wide_for_box_keys(small_cfg):
+    """A chunk whose window spans more than the compact box keys hold maps
+    through two-word brick codes: the JAX stream's voxels, and the port's
+    direct pipeline's."""
     cfg = port_cfg(small_cfg)
     img = synthetic_ping(cfg.image_height, cfg.image_width, seed=12)
     images = np.stack([img, img])
     positions = np.array([[0.0, 0.0, 0.0], [3000.0, 3000.0, 0.0]])
     quats = np.tile([0.0, 0.0, 0.0, 1.0], (2, 1))
-    with pytest.raises(ValueError) as want:
-        pipeline.map_ping_sequence(images, positions, quats, cfg,
-                                   device="cpu", window=2)
+    T = pipeline.batched_sonar_to_world(positions, quats, cfg)
+    assert pipeline.compute_window_boxes(
+        T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, 2, 2, frame_bits=1
+    ) is None
+    direct, _ = pipeline.map_ping_sequence(images, positions, quats, cfg,
+                                           device="cpu", window=2,
+                                           dtype=torch.float64)
     sm, _ = stream(small_cfg, chunk_size=2, window=2)
-    before = brick_state_to_numpy(sm.state)
-    _pair(sm, img, positions[0], 1000.0)
-    with pytest.raises(ValueError) as got:
-        _pair(sm, img, positions[1], 1001.0)
-    assert str(got.value) == str(want.value)
-    assert "wide two-word key path is not ported" in str(got.value)
-    np.testing.assert_equal(brick_state_to_numpy(sm.state), before)
-    assert sm.stats.frames_mapped == 0
+    j_sm = JaxStream(small_cfg, JStreamConfig(publish_rate_hz=0.0),
+                     dtype=jnp.float64, backend="brick", chunk_size=2,
+                     window=2)
+    for t, pos in zip((1000.0, 1001.0), positions):
+        _pair(sm, img, pos, t)
+        _pair(j_sm, img, pos, t)
+    sm.finish()
+    j_sm.finish()
+    assert sm.stats.frames_mapped == j_sm.stats.frames_mapped == 2
+    assert_same_voxels(sm.state, j_sm.state, EXP_ULP_TOL[torch.float64])
+    np.testing.assert_equal(touched_voxels_brick(sm.state),
+                            touched_voxels_brick(direct))
 
 
 def test_stream_drops_undecodable_frames(small_cfg):
@@ -329,10 +345,39 @@ def test_stream_reuses_fan_tables_while_caps_hold(small_cfg):
     assert sm.stats.free_cap_recompiles == 1
 
 
-@pytest.mark.parametrize("backend,item", [("hash", 16), ("brick-sharded", 18)])
+@pytest.mark.parametrize("backend,item", [("brick-sharded", 18)])
 def test_unported_backends_are_refused(small_cfg, backend, item):
     with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
         StreamingMapper(port_cfg(small_cfg), backend=backend, device="cpu")
+
+
+def test_hash_stream_equals_hash_pipeline(survey, small_cfg):
+    """backend="hash": the bag in chunks of 3 (windows of 3) from a
+    one-bucket table gives the map of the hash pipeline over the same
+    pings, voxel for voxel, and publishes it."""
+    from sonar_3d_reconstruction_tpu_torch.grid.hash import (
+        extract_occupied_hash,
+        touched_voxels_hash,
+    )
+
+    sm, published = stream(small_cfg, survey["path"], rate=2.0, chunk_size=3,
+                           window=3, backend="hash", initial_capacity=128)
+    assert sm.stats.grows > 0 and sm.stats.frames_mapped == 8
+    direct, _ = pipeline.map_ping_sequence(
+        survey["images"], survey["positions"], survey["quats"],
+        port_cfg(small_cfg), device="cpu", dtype=torch.float64, window=3,
+        backend="hash",
+    )
+    got, want = touched_voxels_hash(sm.state), touched_voxels_hash(direct)
+    order, w_order = np.lexsort(got[0].T), np.lexsort(want[0].T)
+    np.testing.assert_array_equal(got[0][order], want[0][w_order])
+    np.testing.assert_array_equal(got[1][order], want[1][w_order])
+    assert len(published) >= 2
+    pts, _ = parse_pointcloud2(sm.pointcloud_msg())
+    want_pts, _ = extract_occupied_hash(direct, port_cfg(small_cfg))
+    assert len(pts) > 0
+    np.testing.assert_array_equal(np.sort(pts, axis=0),
+                                  np.sort(want_pts.astype(np.float32), axis=0))
 
 
 def test_stream_needs_the_card_unless_told(small_cfg):
