@@ -114,6 +114,25 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    d. the survey through ``StreamingMapper(backend="hash")`` at chunk 16
       (voxels and log-odds equal to 7a's map), and the node with
       ``map_backend: "hash"`` (as 6f, against a CPU hash mapper).
+8. the dense backend and the multi-host record fold, on the card:
+   a. phase 2's survey through ``map_ping_sequence(backend="dense")`` in
+      the default grid (+-(max_range + 2 m), 481^3 cells) in float32,
+      cold, warm (wall, pings/s, peak memory, state bytes, overflow) and
+      warm again: its touched cells equal phase 2's brick voxels inside
+      the grid, every log-odds bit-equal, and the two warm runs bit-equal;
+   b. DENSE_F64_PINGS pings in float64 into a +-DENSE_F64_REACH m grid on
+      the card and the CPU: stats and every state array bit-equal;
+   c. ``SonarMapper(backend="dense")`` on the selftest scenario, card
+      against CPU (stats and occupied voxels equal, probabilities within
+      1e-5); ENTRY_PINGS bench pings through ``process_sonar_image``,
+      timed one by one; the node with ``map_backend: "dense"`` (as 6f);
+   d. the survey through ``parallel.map_ping_sequence_multihost`` in
+      MULTIHOST_HOSTS segments, window 16, on the brick map (two-word
+      brick codes, K1 counted as in phase 5) against phase 2's map and on
+      the hash map against 7a's: per-ping stats, voxels and log-odds
+      equal; the records' and the fold's seconds, the bytes shipped to
+      the host and the rehash calls apart.
+   The dense backend launches no kernel (its K1 count, 0, is shown).
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -1224,6 +1243,7 @@ F64_PINGS = 16        # phase 6d: float64 on the card and the CPU
 F64_TOL = 1e-12       # log-odds bar of 6d (CUDA's exp is not the CPU's)
 F32_LOG_ODDS_TOL = 1e-5  # log-odds bar of float32 maps, card vs CPU (6b, 6f)
 NODE_PINGS = 16       # phase 6f: pairs delivered to the node
+NODE_PHASE = {"brick": "6f", "hash": "7d", "dense": "8c"}
 
 
 def _survey_msgs(n):
@@ -1640,12 +1660,12 @@ def ros_stub():
 
 
 def _node(dev, smi, msgs, backend="brick"):
-    """6f (and 7d with ``backend="hash"``): the port's node under
-    ros_stub() with that ``map_backend``: NODE_PINGS full-size pairs, the
-    publish timer once with the cloud and once with the markers; its map
-    against a CPU SonarMapper of the backend fed the same pings.  Returns
-    (its K1 launches, None on the hash map, which launches no kernel;
-    facts)."""
+    """6f (7d with ``backend="hash"``, 8c with "dense"): the port's node
+    under ros_stub() with that ``map_backend``: NODE_PINGS full-size
+    pairs, the publish timer once with the cloud and once with the
+    markers; its map against a CPU SonarMapper of the backend fed the same
+    pings.  Returns (its K1 launches, None on the hash and dense maps,
+    which launch no kernel; facts)."""
     import importlib
     import types
 
@@ -1693,7 +1713,7 @@ def _node(dev, smi, msgs, backend="brick"):
                 odom_sub.deliver(o)
             return node.mapper.frame_count
 
-        if backend == "hash":
+        if backend in ("hash", "dense"):
             (frames, n), wall = _wall(lambda: (deliver(), None))
         else:
             (frames, n), wall = _wall(lambda: _k1_launches_of(deliver,
@@ -1705,9 +1725,9 @@ def _node(dev, smi, msgs, backend="brick"):
         cpu = SonarMapper(node.mapper.cfg, backend=backend, device="cpu")
         for x in zip(*_msg_arrays(msgs[:NODE_PINGS])):
             cpu.process_sonar_image(*x)
-        voxels, diff, n_diff = _same_voxels(_touched(node.mapper.state),
-                                            _touched(cpu.state),
-                                            F32_LOG_ODDS_TOL, "node")
+        voxels, diff, n_diff = _same_voxels(
+            _touched(node.mapper.state, node.mapper.dense_spec),
+            _touched(cpu.state, cpu.dense_spec), F32_LOG_ODDS_TOL, "node")
         pubs = {p.topic: p for p in node.publishers}
         _, tick_s = _wall(node.timers[0].fire)
         msg = pubs["/sonar_3d_map"].published[-1]
@@ -1732,7 +1752,7 @@ def _node(dev, smi, msgs, backend="brick"):
                 sys.modules[name] = m
         importlib.reload(node_mod)
     print(
-        f"phase {'7d' if backend == 'hash' else '6f'} node: {NODE_PINGS} "
+        f"phase {NODE_PHASE[backend]} node: {NODE_PINGS} "
         f"pairs of 500x512 through the ROS stub's synchronizer into "
         f"SonarMapperNode at the reference defaults, map_backend {backend!r},"
         f" map on {node.mapper.state.log_odds.device}: {n or 0} bin_apply "
@@ -1790,15 +1810,23 @@ def _by_key(voxels):
     return keys[order], lo[order]
 
 
-def _touched(state):
-    """(keys, log-odds) of a brick or hash map's touched voxels, sorted by
-    key."""
+def _touched(state, spec=None):
+    """(keys, log-odds) of a brick, hash or dense map's touched voxels,
+    sorted by key (a dense map's keys come from its ``spec``)."""
+    import numpy as np
+
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
         BrickGridState,
         touched_voxels_brick,
     )
+    from sonar_3d_reconstruction_tpu_torch.grid.dense import DenseGridState
     from sonar_3d_reconstruction_tpu_torch.grid.hash import touched_voxels_hash
 
+    if isinstance(state, DenseGridState):
+        flat = state.touched.nonzero().squeeze(1)
+        keys = np.stack(np.unravel_index(flat.cpu().numpy(), spec.shape),
+                        axis=-1) + np.asarray(spec.origin_key)
+        return _by_key((keys, state.log_odds[flat].cpu().numpy()))
     return _by_key((touched_voxels_brick if isinstance(state, BrickGridState)
                     else touched_voxels_hash)(state))
 
@@ -2066,7 +2094,7 @@ def _hash_stream_and_node(dev, smi, hash_state):
 
 def phase_hash_and_wide(dev, smi, main_voxels, main_stats, brick_cli_voxels):
     """Phase 7: the hash backend and the wide key path.  Returns ({path: K1
-    launches}, measured numbers)."""
+    launches}, measured numbers, 7a's voxels sorted by key)."""
     t0 = time.perf_counter()
     hash_state, main = _hash_main(dev, smi, main_voxels, main_stats)
     wide_launches, wide = _wide_keys(dev, smi)
@@ -2076,7 +2104,311 @@ def phase_hash_and_wide(dev, smi, main_voxels, main_stats, brick_cli_voxels):
           f"[{smi}]", flush=True)
     return {"map_ping_sequence (wide keys)": wide_launches}, dict(
         hash=main, wide_keys=wide, hash_entry_points=entry,
-        hash_stream=stream)
+        hash_stream=stream), _touched(hash_state)
+
+
+DENSE_F64_PINGS = 8   # phase 8b: float64 pings, card vs CPU
+# phase 8b's grid: +-DENSE_F64_REACH m at 5 cm, 241^3 cells (107 MiB of
+# float64 log-odds, 13 MiB of touched flags): it holds the first pings'
+# returns (3-4 m below the sonar) and keeps the CPU side to seconds
+DENSE_F64_REACH = 6.0
+MULTIHOST_HOSTS = 4   # phase 8d: segments of the survey, window 16
+
+
+@contextlib.contextmanager
+def probe_multihost():
+    """While open, ``map_ping_sequence_multihost``'s halves are timed and
+    counted in the dict it yields: ``records_s`` (every segment's records
+    on the card, shipped to the host), ``fold_s`` (every fold attempt),
+    ``shipped_bytes`` (the host arrays of the segments) and ``rehashes``
+    (table growth calls, with replay)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.parallel import multihost
+
+    probe = dict(records_s=0.0, fold_s=0.0, shipped_bytes=0, rehashes=0)
+    saved = {name: getattr(multihost, name) for name in (
+        "records_for_segment", "apply_record_segments", "rehash",
+        "rehash_bricks")}
+
+    def timed(name, key):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kw)
+            torch.cuda.synchronize()
+            probe[key] += time.perf_counter() - t0
+            if name == "records_for_segment":
+                probe["shipped_bytes"] += sum(x.nbytes for part in out
+                                              for x in part)
+            return out
+        return wrapped
+
+    def counted(name):
+        def wrapped(*args, **kw):
+            probe["rehashes"] += 1
+            return saved[name](*args, **kw)
+        return wrapped
+
+    multihost.records_for_segment = timed("records_for_segment", "records_s")
+    multihost.apply_record_segments = timed("apply_record_segments", "fold_s")
+    multihost.rehash = counted("rehash")
+    multihost.rehash_bricks = counted("rehash_bricks")
+    try:
+        yield probe
+    finally:
+        for name, fn in saved.items():
+            setattr(multihost, name, fn)
+
+
+def _dense_main(dev, smi, main_voxels, main_stats):
+    """8a: the survey through map_ping_sequence(backend="dense") in the
+    default grid, cold, warm and warm again: its touched cells and their
+    log-odds against phase 2's brick map inside the grid, the two warm
+    runs bit-equal.  Returns (K1 launches of the warm run, facts)."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.grid.dense import (
+        default_dense_spec,
+        linearize_keys,
+    )
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    cfg = MapperConfig()
+    spec = default_dense_spec(cfg)
+    images, positions, quats = make_inputs(cfg, 256)
+
+    def run():
+        return map_ping_sequence(images, positions, quats, cfg, device=dev,
+                                 backend="dense", dtype=torch.float32)
+
+    _, cold = _wall(run)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    (st, stats), wall = _wall(run)
+    launches = bin_apply.launches + bin_apply.raw_launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    (again, _), again_s = _wall(run)
+    if not all(torch.equal(a, b) for a, b in zip(st, again)):
+        raise AssertionError("two dense runs of the survey differ")
+    del again
+
+    keys, lo = _by_key(main_voxels)
+    in_grid, lin = linearize_keys(keys.astype(np.int64), spec)
+    cells = st.touched.nonzero().squeeze(1).cpu().numpy()
+    if not np.array_equal(cells, np.sort(lin[in_grid])):
+        raise AssertionError(f"dense map: {len(cells)} touched cells against "
+                             f"{int(in_grid.sum())} brick voxels in the grid")
+    got = st.log_odds[torch.as_tensor(lin[in_grid], device=dev)].cpu().numpy()
+    n_diff = int((got != lo[in_grid]).sum())
+    if n_diff:
+        raise AssertionError(f"dense map: {n_diff} log-odds differ from the "
+                             f"brick map's")
+    overflow = int(st.overflow)
+    if overflow == 0:
+        for k in ("num_occupied", "num_free", "num_candidates"):
+            if not np.array_equal(stats[k], main_stats[k]):
+                raise AssertionError(f"dense vs phase 2: per-ping {k} differs")
+    state_bytes = st.log_odds.nbytes + st.touched.nbytes
+    facts = dict(wall_s=wall, cold_wall_s=cold, second_warm_s=again_s,
+                 pings_per_sec=256 / wall, peak_mib=peak / 2**20,
+                 cells=spec.num_cells, state_bytes=state_bytes,
+                 overflow=overflow, voxels=len(cells),
+                 brick_voxels_outside=int((~in_grid).sum()),
+                 not_bit_equal=n_diff, k1_launches=launches)
+    print(
+        f"phase 8a dense: 256 pings of 500x512, float32, through "
+        f"map_ping_sequence(backend=\"dense\") into the default grid "
+        f"{spec.shape} = {spec.num_cells} cells ({state_bytes / 2**20:.1f} "
+        f"MiB of state): wall {wall:.3f} s (cold run {cold:.3f} s, again "
+        f"{again_s:.3f} s), {256 / wall:.1f} pings/s, peak memory "
+        f"{peak / 2**20:.1f} MiB, overflow {overflow}, {launches} K1 launches;"
+        f" {len(cells)} touched cells equal phase 2's brick voxels inside the"
+        f" grid ({int((~in_grid).sum())} outside), {n_diff} log-odds not "
+        f"bit-equal; per-ping stats "
+        f"{'equal phase 2' if overflow == 0 else 'not compared (overflow)'}; "
+        f"a second warm run bit-equal [{smi}]",
+        flush=True,
+    )
+    return launches, facts
+
+
+def _dense_float64(dev, smi):
+    """8b: DENSE_F64_PINGS survey pings in float64 into a +-DENSE_F64_REACH
+    m grid on the card and the CPU: stats and every state array equal."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.grid.dense import (
+        DenseGridSpec,
+        dense_state_to_numpy,
+    )
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    cfg = MapperConfig()
+    spec = DenseGridSpec.for_world_bounds((-DENSE_F64_REACH,) * 3,
+                                          (DENSE_F64_REACH,) * 3,
+                                          cfg.voxel_resolution)
+    images, positions, quats = make_inputs(cfg, DENSE_F64_PINGS)
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        (st, stats), s = _wall(lambda: map_ping_sequence(
+            images, positions, quats, cfg, device=device, backend="dense",
+            dtype=torch.float64, dense_spec=spec))
+        out[name] = (dense_state_to_numpy(st), stats, s)
+    (g, g_stats, g_s), (c, c_stats, c_s) = out["gpu"], out["cpu"]
+    for k in g_stats:
+        if not np.array_equal(g_stats[k], c_stats[k]):
+            raise AssertionError(f"dense float64 card vs CPU: {k} differs")
+    for k in g:
+        if not np.array_equal(g[k], c[k]):
+            raise AssertionError(f"dense float64 card vs CPU: {k} differs")
+    nbytes = sum(x.nbytes for x in g.values())
+    facts = dict(cells=spec.num_cells, state_bytes=nbytes,
+                 voxels=int(g["touched"].sum()), overflow=int(g["overflow"]),
+                 card_s=g_s, cpu_s=c_s)
+    print(
+        f"phase 8b dense float64: {DENSE_F64_PINGS} pings of 500x512 into "
+        f"+-{DENSE_F64_REACH} m at {cfg.voxel_resolution} m, {spec.shape} = "
+        f"{spec.num_cells} cells ({nbytes / 2**20:.1f} MiB of state): card "
+        f"and CPU bit-equal (stats, log-odds, touched, bounds, overflow "
+        f"{facts['overflow']}), {facts['voxels']} voxels; card {g_s:.3f} s, "
+        f"CPU {c_s:.3f} s [{smi}]",
+        flush=True,
+    )
+    return facts
+
+
+def _dense_entry_points(dev, smi):
+    """8c: the selftest through SonarMapper(backend="dense") on the card
+    and the CPU, ENTRY_PINGS bench pings timed one by one, and the node
+    with map_backend "dense".  Returns facts."""
+    import numpy as np
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.cli import selftest_pings
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", "cpu")):
+        m = SonarMapper(SELFTEST_CFG, backend="dense", device=device)
+        stats = [_without_times(s) for s in selftest_pings(m)]
+        pts, probs = (m.get_point_cloud()[k] for k in ("points",
+                                                        "probabilities"))
+        out[name] = (stats, pts, probs)
+    (g_stats, g_pts, g_probs), (c_stats, c_pts, c_probs) = (out["gpu"],
+                                                            out["cpu"])
+    if g_stats != c_stats:
+        raise AssertionError(f"dense selftest stats differ: {g_stats} vs "
+                             f"{c_stats}")
+    if len(g_pts) == 0 or not np.array_equal(g_pts, c_pts):
+        raise AssertionError("dense selftest occupied voxels differ")
+    diff = float(np.abs(g_probs - c_probs).max())
+    if diff > F32_PROB_TOL:
+        raise AssertionError(f"dense selftest probabilities differ by {diff}")
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, ENTRY_PINGS)
+    m = SonarMapper(cfg, backend="dense", device=dev)
+    ms = []
+    for x in zip(images, positions, quats):
+        _, t = _wall(lambda: m.process_sonar_image(*x))
+        ms.append(t * 1e3)
+    warm = np.asarray(ms[1:])
+    print(
+        f"phase 8c dense entry points: the selftest through "
+        f"SonarMapper(backend=\"dense\") on the card and the CPU: per-ping "
+        f"stats equal, {len(g_pts)} occupied voxels equal, max probability "
+        f"diff {diff:.3g} (tolerance {F32_PROB_TOL}); {ENTRY_PINGS} bench "
+        f"pings through process_sonar_image: first {ms[0]:.1f} ms, then "
+        f"median {np.median(warm):.2f} ms, max {warm.max():.2f} ms per ping, "
+        f"{m.num_voxels} voxels [{smi}]",
+        flush=True,
+    )
+    _, node = _node(dev, smi, _survey_msgs(NODE_PINGS), backend="dense")
+    return dict(selftest_max_prob_diff=diff,
+                process_sonar_image_ms=float(np.median(warm)),
+                first_ping_ms=ms[0], node=node)
+
+
+def _multihost(dev, smi, main_voxels, main_stats, hash_voxels):
+    """8d: the survey through map_ping_sequence_multihost in
+    MULTIHOST_HOSTS segments, window 16, on the brick map (K1 counted)
+    against phase 2's map and on the hash map against 7a's.  Returns (K1
+    launches of the brick fold, facts)."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_multihost,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, 256)
+
+    def run(backend):
+        return map_ping_sequence_multihost(
+            images, positions, quats, cfg, n_hosts=MULTIHOST_HOSTS,
+            window=16, backend=backend, dtype=torch.float32, device=dev)
+
+    facts, launches = {}, 0
+    for backend, want in (("brick", _by_key(main_voxels)),
+                          ("hash", hash_voxels)):
+        with probe_multihost() as probe:
+            if backend == "brick":
+                ((st, stats), launches), wall = _wall(lambda: _k1_launches_of(
+                    lambda: run("brick"), what="multi-host brick fold"))
+            else:
+                (st, stats), wall = _wall(lambda: run("hash"))
+        voxels, _, _ = _same_voxels(_touched(st), want, 0.0,
+                                    f"multi-host {backend} fold")
+        for k in PING_STATS:
+            if not np.array_equal([s[k] for s in stats], main_stats[k]):
+                raise AssertionError(f"multi-host {backend}: per-ping {k} "
+                                     f"differs from phase 2's")
+        facts[backend] = dict(wall_s=wall, pings_per_sec=256 / wall,
+                              capacity=st.capacity, voxels=voxels, **probe)
+        print(
+            f"phase 8d multi-host {backend}: 256 pings of 500x512 in "
+            f"{MULTIHOST_HOSTS} segments, window 16, float32: wall "
+            f"{wall:.3f} s ({256 / wall:.1f} pings/s), records "
+            f"{probe['records_s']:.3f} s, fold {probe['fold_s']:.3f} s, "
+            f"{probe['shipped_bytes'] / 2**20:.1f} MiB shipped to the host, "
+            f"{probe['rehashes']} rehash calls, capacity {st.capacity}"
+            + (f", {launches} bin_apply launches" if backend == "brick"
+               else "")
+            + f"; per-ping stats and {voxels} voxels equal "
+            f"{'phase 2' if backend == 'brick' else '7a'}'s map, log-odds "
+            f"bit-equal [{smi}]",
+            flush=True,
+        )
+    return launches, facts
+
+
+def phase_dense_and_multihost(dev, smi, main_voxels, main_stats, hash_voxels):
+    """Phase 8: the dense backend and the multi-host record fold.  Returns
+    ({path: K1 launches}, measured numbers)."""
+    t0 = time.perf_counter()
+    dense_launches, main = _dense_main(dev, smi, main_voxels, main_stats)
+    f64 = _dense_float64(dev, smi)
+    entry = _dense_entry_points(dev, smi)
+    fold_launches, fold = _multihost(dev, smi, main_voxels, main_stats,
+                                     hash_voxels)
+    print(f"phase 8 dense and multi-host: {time.perf_counter() - t0:.1f} s "
+          f"[{smi}]", flush=True)
+    return {"map_ping_sequence (dense)": dense_launches,
+            "map_ping_sequence_multihost (brick)": fold_launches}, dict(
+        dense=main, dense_float64=f64, dense_entry_points=entry,
+        multihost=fold)
 
 
 def main() -> int:
@@ -2107,8 +2439,11 @@ def main() -> int:
     stream_launches, stream = phase_stream(
         dev, smi, main_voxels, entry["process_sonar_image_ms"],
         entry["cli_map_bag"]["num_voxels"])
-    wide_launches, hash_wide = phase_hash_and_wide(
+    wide_launches, hash_wide, hash_voxels = phase_hash_and_wide(
         dev, smi, main_voxels, main_stats, entry["cli_map_bag"]["num_voxels"])
+    late_launches, dense_fold = phase_dense_and_multihost(
+        dev, smi, main_voxels, main_stats, hash_voxels)
+    del hash_voxels
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -2117,8 +2452,10 @@ def main() -> int:
     rows = [
         ("bin_apply", bin_src, bin_tpu, k1_launches,
          dict(main=k1_launches, **entry_launches,
-              **stream_launches["bin_apply"], **wide_launches),
-         dict(k1, entry_points=entry, stream=stream, **hash_wide)),
+              **stream_launches["bin_apply"], **wide_launches,
+              **late_launches),
+         dict(k1, entry_points=entry, stream=stream, **hash_wide,
+              **dense_fold)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
           **stream_launches["bin_apply_raw"]}, k1_raw),

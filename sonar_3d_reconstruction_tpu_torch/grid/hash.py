@@ -215,7 +215,7 @@ def voxel_keys(points: torch.Tensor, resolution: float) -> torch.Tensor:
     return torch.floor(points / res).to(torch.int32)
 
 
-def _chain_terms(count: torch.Tensor, n_occ: torch.Tensor, dtype, cfg):
+def chain_terms(count: torch.Tensor, n_occ: torch.Tensor, dtype, cfg):
     """(lo_sum, count, occupied) of records in ``dtype``: the frame's summed
     candidate log-odds n_occ * L_occ + (count - n_occ) * L_free, as the JAX
     package and K1 compute it."""
@@ -253,7 +253,7 @@ def apply_unique_records(
     )
     slots = torch.where(valid, torch.where(found, found_slot, new_slots),
                         capacity)
-    lo_sum, count, occupied = _chain_terms(rec.count, rec.n_occ, dtype, cfg)
+    lo_sum, count, occupied = chain_terms(rec.count, rec.n_occ, dtype, cfg)
     cur = state.log_odds[torch.clamp(slots, max=capacity - 1)]
     new_val = finalize_voxel_updates(cur, lo_sum, count, occupied, cfg)
     log_odds = torch.cat([state.log_odds, state.log_odds.new_zeros(1)])
@@ -402,7 +402,7 @@ def apply_records_batched(
     # rank-s lane's value comes from its left neighbour at pass s
     cur = state.log_odds.new_zeros(L)
     cur[c_pos] = state.log_odds[slots]
-    lo_sum, count, occupied = _chain_terms(
+    lo_sum, count, occupied = chain_terms(
         recs.count.reshape(-1)[order], recs.n_occ.reshape(-1)[order], dtype,
         cfg,
     )

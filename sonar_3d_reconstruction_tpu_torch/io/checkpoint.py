@@ -6,8 +6,9 @@ the touched voxels as UNPACKED (N, 3) int32 keys with their log-odds in
 the map's dtype (a float64 map stays float64), the bounds, and the config
 as JSON.  The format does not depend on the table layout, so a snapshot
 saved by either package, from either backend, loads into the other, into
-a brick grid (``load_map_brick``) or a hash grid (``load_map``).  The
-sharded loaders wait for multi-GPU (ROADMAP item 18).
+a brick grid (``load_map_brick``) or a hash grid (``load_map``).  A dense
+map has no snapshot, as in the JAX package.  The sharded loaders wait for
+multi-GPU (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -39,7 +40,12 @@ def save_map(
     path: str, state: Union[BrickGridState, HashGridState], cfg: MapperConfig
 ) -> None:
     """Snapshot a brick or hash map's touched voxels, bounds and config to
-    ``path``."""
+    ``path``; ValueError for any other map."""
+    if not isinstance(state, (BrickGridState, HashGridState)):
+        raise ValueError(
+            f"save_map takes a brick or hash map, not {type(state).__name__} "
+            f"(the dense backend has no snapshot, as in the JAX package)"
+        )
     touched = (touched_voxels_brick if isinstance(state, BrickGridState)
                else touched_voxels_hash)
     keys, log_odds = touched(state)

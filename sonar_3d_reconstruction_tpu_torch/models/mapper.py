@@ -1,11 +1,12 @@
 """SonarMapper — the stateful reference-parity API (PyTorch port of
-``sonar_3d_reconstruction_tpu.models.mapper``, brick and hash backends).
+``sonar_3d_reconstruction_tpu.models.mapper``: brick, hash and dense
+backends).
 
 Same surface as the reference ``SonarTo3DMapper`` (scripts/3d_mapper.py:
 197-650): ``process_sonar_image(polar_image, position, quaternion) ->
 stats`` and ``get_point_cloud(include_free) -> dict``, with the same result
-fields, over a brick or hash map on one device (the first CUDA device
-unless the caller names another).  The port's default backend is
+fields, over a brick, hash or dense map on one device (the first CUDA
+device unless the caller names another).  The port's default backend is
 ``"brick"``; the JAX mapper's is ``"hash"``.
 
 Brick: ``process_sonar_image`` and ``map_sequence`` go through
@@ -21,6 +22,11 @@ window=1)``, one ``update_hash_grid`` as in the JAX mapper.  Before it the
 table doubles once more than a quarter of its slots are used (the JAX
 mapper's proactive growth); a bucket overflow doubles it again and replays
 the ping.  ``map_sequence`` goes through the same call.
+
+Dense: a ping goes through ``map_ping_sequence(backend="dense")`` into a
+bounded grid (``dense_spec``, default +-(max_range + 2 m)), as the JAX
+mapper's ``update_dense_grid`` step; no kernel runs on it, as in the JAX
+package.  ``map_sequence`` refuses it, as the JAX mapper does.
 
 Fan tables are built once per image geometry for the per-ping path
 (exact, uncapped, as the JAX mapper builds them); ``map_sequence`` lets
@@ -41,7 +47,8 @@ import torch
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig, config_from_dict
 from sonar_3d_reconstruction_tpu_torch.device import require_cuda, to_device
 from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
-from sonar_3d_reconstruction_tpu_torch.grid import brick, hash as hash_grid
+from sonar_3d_reconstruction_tpu_torch.grid import brick, dense
+from sonar_3d_reconstruction_tpu_torch.grid import hash as hash_grid
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     FanTables,
     build_fan_tables,
@@ -51,15 +58,15 @@ from sonar_3d_reconstruction_tpu_torch.ops.records import frame_records
 from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
 # backends of the JAX mapper and the ROADMAP items that port them
-_NOT_PORTED = {"dense": 17, "brick-sharded": 18}
+_NOT_PORTED = {"brick-sharded": 18}
 
 # the hash table doubles before a ping once more than this share of its
 # slots is used (the JAX mapper's bound: buckets of 128 at a mean fill of
 # 32 practically never overflow)
 _MAX_LOAD = 0.25
 
-# each backend's reads: (extract occupied, extract classified, log-odds
-# query, probability query)
+# each sparse backend's reads: (extract occupied, extract classified,
+# log-odds query, probability query); the dense reads also take the spec
 _READS = {
     "brick": (brick.extract_occupied_brick, brick.extract_classified_brick,
               brick.query_log_odds_brick, brick.query_probability_brick),
@@ -68,16 +75,33 @@ _READS = {
 }
 
 
+def _dense_reads(spec: dense.DenseGridSpec):
+    """The dense map's reads, called as ``_READS``'s are."""
+    def log_odds(state, points, cfg):
+        # the JAX mapper's dense form: through the float64 probability
+        p = dense.query_probability_dense(state, points, spec, cfg)
+        return np.log(p / (1.0 - p))
+
+    return (
+        lambda state, cfg: dense.extract_occupied(state, spec, cfg),
+        lambda state, cfg: dense.extract_classified(state, spec, cfg),
+        log_odds,
+        lambda state, points, cfg: dense.query_probability_dense(
+            state, points, spec, cfg),
+    )
+
+
 class SonarMapper:
     """Stateful sonar-to-3D mapper (reference SonarTo3DMapper parity,
-    3d_mapper.py:197-650) over a brick or hash map on ``device``: the first
-    CUDA device when None (RuntimeError where there is none)."""
+    3d_mapper.py:197-650) over a brick, hash or dense map on ``device``:
+    the first CUDA device when None (RuntimeError where there is none)."""
 
     def __init__(
         self,
         config: Optional[Any] = None,
         *,
         backend: str = "brick",
+        dense_spec: Optional[dense.DenseGridSpec] = None,
         initial_capacity: int = 1 << 20,
         dtype: torch.dtype = torch.float32,
         track_update_counts: bool = False,
@@ -92,15 +116,22 @@ class SonarMapper:
         if backend in _NOT_PORTED:
             raise ValueError(
                 f"backend {backend!r} is not ported yet (ROADMAP item "
-                f"{_NOT_PORTED[backend]}); use 'brick' or 'hash'"
+                f"{_NOT_PORTED[backend]}); use 'brick', 'hash' or 'dense'"
             )
-        if backend not in _READS:
+        if backend not in ("brick", "hash", "dense"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self.dtype = dtype
         self.device = (require_cuda() if device is None
                        else torch.empty(0, device=device).device)
-        if backend == "hash":
+        self._read = _READS.get(backend)
+        self.dense_spec = None
+        if backend == "dense":
+            self.dense_spec = dense_spec or dense.default_dense_spec(self.cfg)
+            self.state = dense.init_dense_grid(self.dense_spec, dtype,
+                                               self.device)
+            self._read = _dense_reads(self.dense_spec)
+        elif backend == "hash":
             self.state = hash_grid.init_hash_grid(
                 initial_capacity, dtype, self.device
             )
@@ -153,7 +184,7 @@ class SonarMapper:
         self.state, seq_stats = map_ping_sequence(
             images, positions, quats, self.cfg, device=self.device,
             backend=self.backend, state=self.state, dtype=self.dtype,
-            window=1, tables=tables,
+            window=1, tables=tables, dense_spec=self.dense_spec,
         )
         stats = {k: v[0] for k, v in seq_stats.items()}
         if self.track_update_counts:
@@ -185,7 +216,10 @@ class SonarMapper:
         self, images, positions, quaternions, window: int = 1
     ) -> Dict[str, np.ndarray]:
         """Batch API: map a recorded sequence into this mapper's state
-        (``window`` pings per apply); returns per-ping stats arrays."""
+        (``window`` pings per apply); returns per-ping stats arrays.  Brick
+        and hash backends, as in the JAX mapper."""
+        if self.backend == "dense":
+            raise ValueError("map_sequence requires the hash or brick backend")
         t0 = time.time()
         images = np.asarray(images)
         n = images.shape[0]
@@ -288,13 +322,15 @@ class SonarMapper:
     @property
     def num_voxels(self) -> int:
         """Touched voxels in the map."""
+        if self.backend == "dense":
+            return int(self.state.touched.sum())
         return int(self.state.used)
 
     def get_point_cloud(self, include_free: bool = False) -> Dict[str, Any]:
         """Map extraction with the reference result schema
         (3d_mapper.py:597-642)."""
         cfg = self.cfg
-        extract_occupied, extract_classified = _READS[self.backend][:2]
+        extract_occupied, extract_classified = self._read[:2]
         if include_free:
             cls = extract_classified(self.state, cfg)
             occupied, free, unknown = cls["occupied"], cls["free"], cls["unknown"]
@@ -329,7 +365,7 @@ class SonarMapper:
         """Batched point query: (N, 3) world coords -> (N,) occupancy
         probabilities; never-updated voxels answer 0.5 (the reference's
         per-point SimpleOctree.get_probability, 3d_mapper.py:122-126)."""
-        return _READS[self.backend][3](self.state, points, self.cfg)
+        return self._read[3](self.state, points, self.cfg)
 
     def get_probability(self, x: float, y: float, z: float) -> float:
         """Occupancy probability of the voxel containing (x, y, z)
@@ -339,7 +375,7 @@ class SonarMapper:
     def get_log_odds(self, x: float, y: float, z: float) -> float:
         """Log-odds of the voxel containing (x, y, z); 0.0 if never updated
         (reference SimpleOctree.get_log_odds, 3d_mapper.py:117-120)."""
-        query_log_odds = _READS[self.backend][2]
+        query_log_odds = self._read[2]
         return float(query_log_odds(self.state, [[x, y, z]], self.cfg)[0])
 
     def clear(self) -> None:
@@ -350,7 +386,10 @@ class SonarMapper:
     def reset_map(self) -> None:
         """Clear the map, keeping its grown capacity (reference reset_map,
         3d_mapper.py:644-650)."""
-        if self.backend == "hash":
+        if self.backend == "dense":
+            self.state = dense.init_dense_grid(self.dense_spec, self.dtype,
+                                               self.device)
+        elif self.backend == "hash":
             self.state = hash_grid.init_hash_grid(
                 self.state.capacity, self.dtype, self.device
             )

@@ -1,5 +1,6 @@
 """Ping-sequence pipeline (PyTorch port of
-``sonar_3d_reconstruction_tpu.pipeline``: the brick and hash backends).
+``sonar_3d_reconstruction_tpu.pipeline``: the brick, hash and dense
+backends).
 
 ``map_ping_sequence`` maps a recorded sequence window by window: per ping,
 records (ops/records.py); per window, one apply to the map.  The host loop
@@ -20,11 +21,17 @@ Hash backend (grid/hash.py): window 1 applies each ping with
 ``update_hash_grid``; a larger window applies its pings' voxel-code
 records with ``apply_records_batched``.
 
-The map grows on demand: a window that would overflow a table bucket is
-rejected whole, the table doubles (``rehash_bricks`` / ``rehash``) and the
-sequence replays from that window.  Keys outside the packable range and,
-in the brick backend, voxels with 2^16+ emissions in one frame are fatal
-(ValueError), as growth cannot fix them.
+Dense backend (grid/dense.py): each ping is one ``update_dense_grid``
+into a bounded grid (default +-(max_range + 2 m), as in the JAX package),
+written in place into a copy of the given state.  It never grows and has
+no range failure: candidates outside the grid count into ``overflow``.
+``window`` and ``dense_mode`` do not apply to it.
+
+The brick and hash maps grow on demand: a window that would overflow a
+table bucket is rejected whole, the table doubles (``rehash_bricks`` /
+``rehash``) and the sequence replays from that window.  Keys outside the
+packable range and, in the brick backend, voxels with 2^16+ emissions in
+one frame are fatal (ValueError), as growth cannot fix them.
 """
 
 from __future__ import annotations
@@ -44,6 +51,14 @@ from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     init_brick_grid,
     is_raw_mode,
     rehash_bricks,
+)
+from sonar_3d_reconstruction_tpu_torch.grid.dense import (
+    DenseGridSpec,
+    DenseGridState,
+    copy_dense_grid,
+    default_dense_spec,
+    init_dense_grid,
+    update_dense_grid_,
 )
 from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     HashGridState,
@@ -80,15 +95,21 @@ HASH_STAT_DTYPES = {
     "range_fail": bool,
     "batch_n_unique": np.int64,
 }
+DENSE_STAT_DTYPES = {
+    "num_occupied": np.int64,
+    "num_free": np.int64,
+    "num_candidates": np.int64,
+}
 
 DEFAULT_BRICK_CAPACITY = 1 << 15
 DEFAULT_HASH_CAPACITY = 1 << 20
 # table doublings one sequence may need before mapping gives up
 MAX_GROW_RETRIES = 12
 
-_STATE_TYPES = {"brick": BrickGridState, "hash": HashGridState}
+_STATE_TYPES = {"brick": BrickGridState, "hash": HashGridState,
+                "dense": DenseGridState}
 
-MapState = Union[BrickGridState, HashGridState]
+MapState = Union[BrickGridState, HashGridState, DenseGridState]
 
 
 def check_state_backend(state, backend: str) -> None:
@@ -238,6 +259,30 @@ def scan_pings_hash(
     return state, stats
 
 
+def scan_pings_dense(
+    state: DenseGridState,
+    images: torch.Tensor,
+    transforms: torch.Tensor,
+    *,
+    tables: FanTables,
+    spec: DenseGridSpec,
+    cfg: MapperConfig,
+    dtype: torch.dtype,
+) -> Tuple[DenseGridState, Dict[str, np.ndarray]]:
+    """Apply every ping to a copy of the dense map ``state``, one
+    ``update_dense_grid`` a ping; returns (state, per-ping stats (P,) on
+    the host)."""
+    state = copy_dense_grid(state)
+    per_ping = []
+    for image, T in zip(images, transforms):
+        cand = backproject_ping(image, T, tables, cfg, dtype=dtype)
+        state, stats = update_dense_grid_(state, cand, spec, cfg)
+        per_ping.append(torch.stack([stats[k] for k in DENSE_STAT_DTYPES]))
+    table = torch.stack(per_ping).cpu().numpy()
+    return state, {k: table[:, i].astype(dt)
+                   for i, (k, dt) in enumerate(DENSE_STAT_DTYPES.items())}
+
+
 def map_ping_sequence(
     images: np.ndarray,
     positions: np.ndarray,
@@ -251,6 +296,7 @@ def map_ping_sequence(
     window: int = 1,
     dense_mode: str = "pallas",
     tables: Optional[FanTables] = None,
+    dense_spec: Optional[DenseGridSpec] = None,
 ) -> Tuple[MapState, Dict[str, np.ndarray]]:
     """Map a whole recorded ping sequence on ``device``: the first CUDA
     device when it is None (RuntimeError where there is none; pass "cpu"
@@ -258,10 +304,12 @@ def map_ping_sequence(
 
     ``images`` (P, range_bins, bearing_bins) polar intensity images;
     ``positions`` (P, 3) and ``quaternions`` (P, 4) xyzw odometry poses.
-    ``backend`` is ``"brick"`` (the default) or ``"hash"``.  ``state``
-    resumes an existing map of that backend (default: a fresh one of
-    ``DEFAULT_BRICK_CAPACITY`` bricks or ``DEFAULT_HASH_CAPACITY`` slots
-    on ``device``).  ``dense_mode`` (brick only) is ``"pallas"`` (per-ping
+    ``backend`` is ``"brick"`` (the default), ``"hash"`` or ``"dense"``.
+    ``state`` resumes an existing map of that backend (default: a fresh
+    one of ``DEFAULT_BRICK_CAPACITY`` bricks, ``DEFAULT_HASH_CAPACITY``
+    slots or ``dense_spec``'s cells on ``device``).  ``dense_spec`` (dense
+    only) is the grid's geometry (default: +-(max_range + 2 m) at the
+    voxel resolution).  ``dense_mode`` (brick only) is ``"pallas"`` (per-ping
     dedup, unique records) or ``"pallas-raw"`` (raw candidates summed by
     the kernel); both give the same map.  ``tables`` are the fan tables of
     the images' geometry (default: built with every lattice cap sized for
@@ -269,31 +317,45 @@ def map_ping_sequence(
     passes its own, so they are built once.
 
     Returns (final state, per-ping stats: ``num_occupied`` / ``num_free``
-    unique voxels by type, ``num_candidates`` valid emissions,
-    ``overflowed`` and the failure causes, the window sizes).
+    unique voxels by type, ``num_candidates`` valid emissions; on the
+    brick and hash backends also ``overflowed`` and the failure causes and
+    the window sizes).  The dense backend returns ``{}`` for no pings, as
+    the JAX package does.
     """
     cfg = cfg or MapperConfig()
     if backend not in _STATE_TYPES:
-        raise ValueError(f"backend {backend!r} is not ported; use 'brick' "
-                         f"or 'hash'")
+        raise ValueError(f"unknown backend {backend!r}; use 'brick', "
+                         f"'hash' or 'dense'")
     check_state_backend(state, backend)
     is_raw_mode(dense_mode)
     # canonical form ("cuda" -> "cuda:0"), as tensors report their device
     device = (require_cuda() if device is None
               else torch.empty(0, device=device).device)
+    if backend == "dense":
+        dense_spec = dense_spec or default_dense_spec(cfg)
     if state is None:
-        state = (init_brick_grid(DEFAULT_BRICK_CAPACITY, dtype, device)
-                 if backend == "brick"
-                 else init_hash_grid(DEFAULT_HASH_CAPACITY, dtype, device))
+        if backend == "brick":
+            state = init_brick_grid(DEFAULT_BRICK_CAPACITY, dtype, device)
+        elif backend == "hash":
+            state = init_hash_grid(DEFAULT_HASH_CAPACITY, dtype, device)
+        else:
+            state = init_dense_grid(dense_spec, dtype, device)
     if state.log_odds.device != device or state.log_odds.dtype != dtype:
         raise ValueError(
             f"state is {state.log_odds.dtype} on {state.log_odds.device}, "
             f"not {dtype} on {device}"
         )
-    stat_dtypes = STAT_DTYPES if backend == "brick" else HASH_STAT_DTYPES
+    if backend == "dense" and state.log_odds.shape[0] != dense_spec.num_cells:
+        raise ValueError(
+            f"dense state has {state.log_odds.shape[0]} cells, the spec "
+            f"{dense_spec.num_cells}"
+        )
     images = np.asarray(images)
     P, R, B = images.shape
     if P == 0:
+        if backend == "dense":
+            return state, {}
+        stat_dtypes = STAT_DTYPES if backend == "brick" else HASH_STAT_DTYPES
         return state, {k: np.zeros(0, dt) for k, dt in stat_dtypes.items()}
 
     if tables is None:
@@ -307,6 +369,9 @@ def map_ping_sequence(
     window = min(max(window, 1), P)
     images_dev = to_device(images, device)
     T_dev = torch.as_tensor(T, device=device).to(dtype)
+    if backend == "dense":
+        return scan_pings_dense(state, images_dev, T_dev, tables=tables,
+                                spec=dense_spec, cfg=cfg, dtype=dtype)
     kw = dict(tables=tables, cfg=cfg, dtype=dtype, window=window)
     if backend == "brick":
         # box keys only if every window fits them, as in the JAX package
@@ -318,6 +383,7 @@ def map_ping_sequence(
     else:
         scan, grow = scan_pings_hash, rehash
 
+    stat_dtypes = STAT_DTYPES if backend == "brick" else HASH_STAT_DTYPES
     merged = {k: np.zeros(P, dt) for k, dt in stat_dtypes.items()}
     start = 0
     for _ in range(MAX_GROW_RETRIES):

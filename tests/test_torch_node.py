@@ -120,18 +120,19 @@ def test_ingest_through_synchronizer_and_publish(node_env):
 
 
 def test_map_backend_brick_default_and_hash_accepted(node_env):
-    """map_backend defaults to the brick map; "hash" maps the same pair to
-    the same occupied voxels; another name is refused."""
+    """map_backend defaults to the brick map; "hash" and "dense" map the
+    same pair to the same occupied voxels; another name is refused."""
     clouds = []
-    for extra in ({}, {"map_backend": "hash"}):
+    for extra in ({}, {"map_backend": "hash"}, {"map_backend": "dense"}):
         node = _make_node(node_env, **extra)
         assert node.mapper.backend == extra.get("map_backend", "brick")
         _deliver(node, synthetic_ping(32, 24, seed=77), (0, 0, 0), 60.0, 0.02)
         assert node.mapper.frame_count == 1
         clouds.append(node.mapper.get_point_cloud()["points"])
     assert len(clouds[0]) > 0
-    np.testing.assert_array_equal(np.sort(clouds[0], axis=0),
-                                  np.sort(clouds[1], axis=0))
+    for cloud in clouds[1:]:
+        np.testing.assert_array_equal(np.sort(clouds[0], axis=0),
+                                      np.sort(cloud, axis=0))
     with pytest.raises(ValueError, match="unknown backend"):
         _make_node(node_env, map_backend="octree")
 
@@ -297,16 +298,15 @@ def test_main_spin_and_shutdown_stats(node_env):
                for _, m in node.get_logger().records)
 
 
-def test_published_cloud_matches_jax_node():
-    """The same pairs through the JAX node (brick backend) and the port's
-    node give the same published points and probabilities."""
+def _published_by_both_nodes(backend):
+    """The published cloud messages of the JAX node and the port's node,
+    each fed the same pairs with ``map_backend`` = backend."""
     displaced = fake_rclpy.install()
     try:
         msgs = {}
         for name, mod in (("jax", fake_rclpy.reload_node()),
                           ("port", _reload_port_node())):
-            extra = {"map_backend": "brick"}
-            node = _make_node(mod, **extra)
+            node = _make_node(mod, map_backend=backend)
             for i in range(4):
                 _deliver(node, synthetic_ping(32, 24, seed=20 + i),
                          (0.1 * i, 0.05 * i, 0.0), 80.0 + i, odom_delay=0.01)
@@ -317,11 +317,28 @@ def test_published_cloud_matches_jax_node():
         fake_rclpy.uninstall(displaced)
         fake_rclpy.reload_node()
         _reload_port_node()
+    return msgs
+
+
+def _assert_same_cloud(msgs):
     got, want = (np.frombuffer(msgs[k].data, np.float32).reshape(-1, 4)
                  for k in ("port", "jax"))
     assert len(got) > 0 and msgs["port"].width == msgs["jax"].width
     np.testing.assert_array_equal(got[:, :3], want[:, :3])
     np.testing.assert_allclose(got[:, 3], want[:, 3], rtol=0, atol=1e-5)
+
+
+def test_published_cloud_matches_jax_node():
+    """The same pairs through the JAX node (brick backend) and the port's
+    node give the same published points and probabilities."""
+    _assert_same_cloud(_published_by_both_nodes("brick"))
+
+
+def test_dense_node_cloud_matches_jax_node():
+    """map_backend "dense" maps through the port's dense mapper (the
+    default grid of +-(max_range + 2 m)): the published points equal the
+    JAX dense node's in cell order, probabilities within 1e-5."""
+    _assert_same_cloud(_published_by_both_nodes("dense"))
 
 
 def test_node_module_imports_without_ros2():

@@ -309,9 +309,10 @@ def test_map_ping_sequence_rejects_other_dense_modes(small_cfg, mode):
 def test_map_ping_sequence_rejects_what_it_does_not_map(small_cfg):
     cfg = port_cfg(small_cfg)
     images, positions, quats = make_seq(small_cfg, 2, seed=65)
-    with pytest.raises(ValueError, match="not ported"):
-        pipeline.map_ping_sequence(images, positions, quats, cfg,
-                                   device="cpu", backend="dense")
+    for backend in ("brick-sharded", "octree"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            pipeline.map_ping_sequence(images, positions, quats, cfg,
+                                       device="cpu", backend=backend)
     with pytest.raises(ValueError, match="does not match backend='hash'"):
         pipeline.map_ping_sequence(
             images, positions, quats, cfg, device="cpu", backend="hash",
@@ -381,7 +382,8 @@ def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
 def test_port_runs_with_jax_blocked():
     """The port and its CPU path import neither jax nor the JAX package:
     the main path, the hash backend (pipeline, snapshot, mapper), wide
-    keys, every module of the port (the stream, the node and the debug
+    keys, the dense backend (pipeline, mapper), the multi-host fold,
+    every module of the port (the stream, the node and the debug
     overlay included), a stream over the same pings, and the CLI's
     selftest."""
     code = textwrap.dedent("""
@@ -438,6 +440,17 @@ def test_port_runs_with_jax_blocked():
         for i in range(3):
             hm.process_sonar_image(images[i], pos[i], q[i])
         assert hm.num_voxels == int(h_st.used)
+        d_st, d_stats = map_ping_sequence(images, pos, q, cfg, device="cpu",
+                                          backend="dense")
+        assert (d_stats["num_occupied"] == stats["num_occupied"]).all()
+        dm = SonarMapper(cfg, backend="dense", device="cpu")
+        dm.process_sonar_image(images[0], pos[0], q[0])
+        assert 0 < dm.num_voxels <= int(d_st.touched.sum())
+        from sonar_3d_reconstruction_tpu_torch.parallel import (
+            map_ping_sequence_multihost)
+        m_st, _ = map_ping_sequence_multihost(images, pos, q, cfg, n_hosts=2,
+                                              window=2, device="cpu")
+        assert int(m_st.used) == int(st.used)
         import runpy
         from sonar_3d_reconstruction_tpu_torch import cli, config
         from sonar_3d_reconstruction_tpu_torch.io import (
