@@ -133,6 +133,32 @@ Phases (each prints its own line; any failure raises and exits non-zero):
       equal; the records' and the fold's seconds, the bytes shipped to
       the host and the rehash calls apart.
    The dense backend launches no kernel (its K1 count, 0, is shown).
+9. the frame-parallel sharded brick engine on the card, its mesh the card
+   repeated (``(cuda:0,) * S``):
+   a. phase 2's survey through ``parallel.map_ping_sequence_sharded_frames``
+      (window 16, float32, compact box keys) at each S of SHARDS (the
+      last cold, then warm): per-ping stats, voxels and log-odds equal
+      phase 2's; voxels per shard, K1 launches, rehash calls, the largest
+      (frame, owner) block, the record bytes moved to their owners, wall,
+      pings/s, peak memory;
+   b. 7b's WIDE_PINGS pings at WIDE_RANGE at SHARDED_S shards (two-word
+      codes): voxels and log-odds equal 7b's brick map; K1 against its
+      plain version on the widest shard window;
+   c. ``SonarMapper(backend="brick-sharded")`` at SHARDED_S shards:
+      ENTRY_PINGS pings timed one by one; ``map_sequence`` of the survey
+      (voxels, the classified cloud and point queries against phase 2's
+      map); ``save_map`` -> ``load_map_sharded_brick`` (every voxel on its
+      shard) and -> ``load_map_brick``; ``map-bag --offline --backend
+      brick-sharded --shards SHARDED_S`` on step 5d's bag (its snapshot
+      equal to 5d's);
+   d. the survey through ``StreamingMapper(backend="brick-sharded")`` at
+      chunk 16 (map equal to phase 2's), and the node with
+      ``map_backend: "brick-sharded"`` (as 6f, against a CPU mapper of as
+      many shards);
+   e. F64_PINGS pings in float64 at SHARDED_S shards, card vs CPU: stats
+      and every array of every shard bit-equal; the occupied fan's trig
+      lookup against direct cos/sin on the card.
+   Each path's K1 launches are counted as in phase 5.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -1243,7 +1269,8 @@ F64_PINGS = 16        # phase 6d: float64 on the card and the CPU
 F64_TOL = 1e-12       # log-odds bar of 6d (CUDA's exp is not the CPU's)
 F32_LOG_ODDS_TOL = 1e-5  # log-odds bar of float32 maps, card vs CPU (6b, 6f)
 NODE_PINGS = 16       # phase 6f: pairs delivered to the node
-NODE_PHASE = {"brick": "6f", "hash": "7d", "dense": "8c"}
+NODE_PHASE = {"brick": "6f", "hash": "7d", "dense": "8c",
+              "brick-sharded": "9d"}
 
 
 def _survey_msgs(n):
@@ -1665,7 +1692,8 @@ def _node(dev, smi, msgs, backend="brick"):
     pairs, the publish timer once with the cloud and once with the
     markers; its map against a CPU SonarMapper of the backend fed the same
     pings.  Returns (its K1 launches, None on the hash and dense maps,
-    which launch no kernel; facts)."""
+    which launch no kernel; facts).  With "brick-sharded" (9d) the CPU
+    mapper has as many shards as the node's mesh."""
     import importlib
     import types
 
@@ -1718,11 +1746,13 @@ def _node(dev, smi, msgs, backend="brick"):
         else:
             (frames, n), wall = _wall(lambda: _k1_launches_of(deliver,
                                                               what="node"))
-        if (frames != NODE_PINGS or node.mapper.state.log_odds.device != dev
+        if (frames != NODE_PINGS or node.mapper.device != dev
                 or node.mapper.backend != backend):
             raise AssertionError(f"node mapped {frames} frames on "
-                                 f"{node.mapper.state.log_odds.device}")
-        cpu = SonarMapper(node.mapper.cfg, backend=backend, device="cpu")
+                                 f"{node.mapper.device}")
+        mesh = node.mapper.mesh
+        cpu = SonarMapper(node.mapper.cfg, backend=backend, device="cpu",
+                          mesh=None if mesh is None else ["cpu"] * len(mesh))
         for x in zip(*_msg_arrays(msgs[:NODE_PINGS])):
             cpu.process_sonar_image(*x)
         voxels, diff, n_diff = _same_voxels(
@@ -1755,7 +1785,9 @@ def _node(dev, smi, msgs, backend="brick"):
         f"phase {NODE_PHASE[backend]} node: {NODE_PINGS} "
         f"pairs of 500x512 through the ROS stub's synchronizer into "
         f"SonarMapperNode at the reference defaults, map_backend {backend!r},"
-        f" map on {node.mapper.state.log_odds.device}: {n or 0} bin_apply "
+        f" map on {node.mapper.device}"
+        + ("" if mesh is None else f" ({len(mesh)} shards)")
+        + f": {n or 0} bin_apply "
         f"launches, {wall:.3f} s; {voxels} voxels equal to a CPU "
         f"SonarMapper fed the same pings, log-odds max |diff| {diff:.3g} "
         f"(tolerance "
@@ -1811,8 +1843,9 @@ def _by_key(voxels):
 
 
 def _touched(state, spec=None):
-    """(keys, log-odds) of a brick, hash or dense map's touched voxels,
-    sorted by key (a dense map's keys come from its ``spec``)."""
+    """(keys, log-odds) of a brick, sharded brick, hash or dense map's
+    touched voxels, sorted by key (a dense map's keys come from its
+    ``spec``)."""
     import numpy as np
 
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
@@ -1821,7 +1854,13 @@ def _touched(state, spec=None):
     )
     from sonar_3d_reconstruction_tpu_torch.grid.dense import DenseGridState
     from sonar_3d_reconstruction_tpu_torch.grid.hash import touched_voxels_hash
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        ShardedBrickState,
+        gather_sharded_brick_state,
+    )
 
+    if isinstance(state, ShardedBrickState):
+        return _by_key(gather_sharded_brick_state(state))
     if isinstance(state, DenseGridState):
         flat = state.touched.nonzero().squeeze(1)
         keys = np.stack(np.unravel_index(flat.cpu().numpy(), spec.shape),
@@ -1922,7 +1961,7 @@ def _wide_keys(dev, smi):
     and the hash backend; K1 on the
     widest wide window against its plain version; WIDE_F64_PINGS pings in
     float64 on the card and the CPU.  Returns (K1 launches of the wide
-    path, facts)."""
+    path, facts, the brick map's voxels sorted by key)."""
     import torch
 
     from bench import make_inputs
@@ -2003,7 +2042,7 @@ def _wide_keys(dev, smi):
         f"{g_s:.3f} s, CPU {c_s:.3f} s [{smi}]",
         flush=True,
     )
-    return launches, facts
+    return launches, facts, _touched(b_st)
 
 
 def _hash_entry_points(dev, smi, hash_state, brick_cli_voxels):
@@ -2094,17 +2133,18 @@ def _hash_stream_and_node(dev, smi, hash_state):
 
 def phase_hash_and_wide(dev, smi, main_voxels, main_stats, brick_cli_voxels):
     """Phase 7: the hash backend and the wide key path.  Returns ({path: K1
-    launches}, measured numbers, 7a's voxels sorted by key)."""
+    launches}, measured numbers, 7a's voxels and 7b's brick voxels, sorted
+    by key)."""
     t0 = time.perf_counter()
     hash_state, main = _hash_main(dev, smi, main_voxels, main_stats)
-    wide_launches, wide = _wide_keys(dev, smi)
+    wide_launches, wide, wide_voxels = _wide_keys(dev, smi)
     entry = _hash_entry_points(dev, smi, hash_state, brick_cli_voxels)
     stream = _hash_stream_and_node(dev, smi, hash_state)
     print(f"phase 7 hash and wide keys: {time.perf_counter() - t0:.1f} s "
           f"[{smi}]", flush=True)
     return {"map_ping_sequence (wide keys)": wide_launches}, dict(
         hash=main, wide_keys=wide, hash_entry_points=entry,
-        hash_stream=stream), _touched(hash_state)
+        hash_stream=stream), _touched(hash_state), wide_voxels
 
 
 DENSE_F64_PINGS = 8   # phase 8b: float64 pings, card vs CPU
@@ -2411,6 +2451,410 @@ def phase_dense_and_multihost(dev, smi, main_voxels, main_stats, hash_voxels):
         multihost=fold)
 
 
+# phase 9: the frame-parallel sharded brick engine on one card, its mesh
+# the card repeated.  Phase 9 maps phase 2's survey at full size; nothing
+# was cut for time
+SHARDS = (2, 4)       # 9a: shards of the survey's two runs
+SHARDED_S = 4         # 9b-9e: shards of the other paths
+
+
+@contextlib.contextmanager
+def count_sharded_rehashes():
+    """While open, the sharded engine's growth also counts its calls
+    (every shard doubles in one call) in the dict it yields (``n``)."""
+    from sonar_3d_reconstruction_tpu_torch.parallel import shard_brick
+
+    count = {"n": 0}
+    fn = shard_brick.rehash_sharded_bricks
+
+    def wrapped(*args, **kw):
+        count["n"] += 1
+        return fn(*args, **kw)
+
+    shard_brick.rehash_sharded_bricks = wrapped
+    try:
+        yield count
+    finally:
+        shard_brick.rehash_sharded_bricks = fn
+
+
+def _fits_sharded_boxes(positions, quats, cfg, n_shards, window=16):
+    """Whether the sharded engine maps these poses with compact box keys
+    (its gate: frame bits widened to hold the owner above the key)."""
+    from sonar_3d_reconstruction_tpu_torch.geometry import (
+        batched_sonar_to_world,
+    )
+    from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+        compute_window_boxes,
+    )
+
+    T = batched_sonar_to_world(positions, quats, cfg)
+    gbits = max(1, (max(n_shards - 1, 1)).bit_length())
+    return compute_window_boxes(
+        T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, window, 2,
+        frame_bits=max((window - 1).bit_length(), 1 + gbits)) is not None
+
+
+def _sharded_main(dev, smi, main_voxels, main_stats):
+    """9a: phase 2's survey through map_ping_sequence_sharded_frames,
+    window 16, on (card,) * S for S in SHARDS (the last S twice, the
+    second run reported): per-ping stats and every voxel's log-odds equal
+    phase 2's.  Returns ({path: K1 launches}, facts)."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded_frames,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, 256)
+    want = _by_key(main_voxels)
+    launches, facts = {}, {}
+    for S in SHARDS:
+        if not _fits_sharded_boxes(positions, quats, cfg, S):
+            raise AssertionError(f"the survey does not fit box keys at S={S}")
+        path = f"map_ping_sequence_sharded_frames (S={S})"
+
+        def run():
+            return map_ping_sequence_sharded_frames(
+                images, positions, quats, cfg, mesh=(dev,) * S, window=16,
+                dtype=torch.float32)
+
+        cold_s = None
+        if S == SHARDS[-1]:
+            _, cold_s = _wall(run)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with count_sharded_rehashes() as grown:
+            ((st, stats), n), wall = _wall(lambda: _k1_launches_of(
+                run, what=path))
+        peak = torch.cuda.max_memory_allocated(dev)
+        _same_stats(stats, main_stats, path)
+        voxels, _, _ = _same_voxels(_touched(st), want, 0.0, path)
+        per_shard = [int(x.used) for x in st.shards]
+        launches[path] = n
+        facts[f"S{S}"] = dict(
+            wall_s=wall, cold_s=cold_s, pings_per_sec=256 / wall,
+            k1_launches=n, rehash_calls=grown["n"],
+            local_capacity=st.local_capacity, voxels_per_shard=per_shard,
+            xchg_n_max=int(stats["xchg_n_max"].max()),
+            xchg_bytes=int(stats["xchg_bytes"].sum()),
+            batch_n_lanes_max=int(stats["batch_n_lanes_max"].max()),
+            peak_mib=peak / 2**20)
+        print(
+            f"phase 9a sharded frames, S={S} on {dev} x {S}: 256 pings of "
+            f"500x512, window 16, float32, compact box keys: per-ping stats "
+            f"and {voxels} voxels equal phase 2's map, log-odds bit-equal; "
+            f"voxels per shard {per_shard}; wall {wall:.3f} s"
+            + ("" if cold_s is None else f" (cold run {cold_s:.3f} s)")
+            + f", {256 / wall:.1f} pings/s, peak memory {peak / 2**20:.1f} "
+            f"MiB, {n} bin_apply launches, {grown['n']} rehash calls, "
+            f"{st.local_capacity} bricks a shard; largest (frame, owner) "
+            f"block {facts[f'S{S}']['xchg_n_max']} records, "
+            f"{facts[f'S{S}']['xchg_bytes']} bytes of records moved to "
+            f"their owners; largest shard window "
+            f"{facts[f'S{S}']['batch_n_lanes_max']} lanes [{smi}]",
+            flush=True,
+        )
+    return launches, facts
+
+
+def _sharded_wide(dev, smi, wide_voxels):
+    """9b: phase 7b's WIDE_PINGS pings at WIDE_RANGE through the sharded
+    engine at SHARDED_S shards (two-word brick codes, K1): voxels and
+    log-odds equal 7b's brick map; K1 against its plain version on the
+    widest shard window of the run.  Returns (K1 launches, facts)."""
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded_frames,
+    )
+
+    cfg = MapperConfig(max_range=WIDE_RANGE)
+    images, positions, quats = make_inputs(MapperConfig(), WIDE_PINGS)
+    if _fits_sharded_boxes(positions, quats, cfg, SHARDED_S):
+        raise AssertionError("the wide survey fits box keys")
+    what = f"sharded frames, wide keys (S={SHARDED_S})"
+    with keep_widest_k1_call(raw=False) as kept:
+        ((st, stats), launches), wall = _wall(lambda: _k1_launches_of(
+            lambda: map_ping_sequence_sharded_frames(
+                images, positions, quats, cfg, mesh=(dev,) * SHARDED_S,
+                window=16, dtype=torch.float32), what=what))
+    voxels, _, _ = _same_voxels(_touched(st), wide_voxels, 0.0, what)
+    kw = dict(B=16, vol=64, f_bits=4, o=6, cfg=cfg)
+    args = kept["args"]
+    for dtype in (torch.float32, torch.float64):
+        a = args[:3] + (args[3].to(dtype),)
+        got, want = k1.bin_apply(*a, **kw), k1.bin_apply_reference(*a, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"bin_apply != plain on the widest sharded "
+                                 f"wide window ({dtype})")
+    k1_ms = _device_ms(lambda: k1.bin_apply(*args, **kw), "bin_apply_kernel")
+    bound_ms = _bound_ms(k1_bytes(args, False, 16)[0])
+    nb, lanes = args[3].shape[0], args[0].shape[0]
+    print(
+        f"phase 9b {what}: {WIDE_PINGS} pings of 500x512 at max_range "
+        f"{WIDE_RANGE} m, window 16, float32: {voxels} voxels and log-odds "
+        f"equal 7b's brick map (tolerance 0); wall {wall:.3f} s, {launches} "
+        f"bin_apply launches, {st.local_capacity} bricks a shard, largest "
+        f"block {int(stats['xchg_n_max'].max())} records; bin_apply == plain "
+        f"in float32 and float64 on the widest shard window (NB={nb}, "
+        f"L={lanes}), {k1_ms:.4f} ms device time, bound {bound_ms:.4f} ms "
+        f"({bound_ms / k1_ms:.1%} of it) [{smi}]",
+        flush=True,
+    )
+    return launches, dict(wall_s=wall, k1_launches=launches, voxels=voxels,
+                          k1_widest_ms=k1_ms, k1_widest_bound_ms=bound_ms,
+                          k1_widest_nb=nb, k1_widest_lanes=lanes)
+
+
+def _sharded_entry_points(dev, smi, main_voxels, brick_cli_voxels):
+    """9c: SonarMapper(backend="brick-sharded") on (card,) * SHARDED_S:
+    ENTRY_PINGS pings timed one by one; map_sequence of the survey, its
+    voxels, classified cloud and point queries against phase 2's map;
+    save_map -> load_map_sharded_brick and -> load_map_brick; map-bag
+    --offline --backend brick-sharded --shards SHARDED_S on phase 5d's
+    bag.  Returns ({path: K1 launches}, facts)."""
+    import numpy as np
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
+        load_map_brick,
+        load_map_sharded_brick,
+        save_map,
+    )
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+
+    cfg = MapperConfig()
+    mesh = (dev,) * SHARDED_S
+    images, positions, quats = make_inputs(cfg, 256)
+    m = SonarMapper(cfg, backend="brick-sharded", mesh=mesh)
+    ms = []
+
+    def per_ping():
+        for x in zip(images[:ENTRY_PINGS], positions[:ENTRY_PINGS],
+                     quats[:ENTRY_PINGS]):
+            _, t = _wall(lambda: m.process_sonar_image(*x))
+            ms.append(t * 1e3)
+
+    _, ping_launches = _k1_launches_of(
+        per_ping, what="mapper.process_sonar_image (brick-sharded)")
+    warm = np.asarray(ms[1:])
+
+    m = SonarMapper(cfg, backend="brick-sharded", mesh=mesh)
+    (stats, seq_launches), seq_s = _wall(lambda: _k1_launches_of(
+        lambda: m.map_sequence(images, positions, quats, window=16),
+        what="mapper.map_sequence (brick-sharded)"))
+    keys, lo = _by_key(main_voxels)
+    voxels, _, _ = _same_voxels(_touched(m.state), (keys, lo), 0.0,
+                                "sharded map_sequence vs phase 2")
+    cloud, cloud_s = _wall(lambda: m.get_point_cloud(include_free=True))
+    lo64 = lo.astype(np.float64)
+    free = lo64 < np.log(0.3 / 0.7)
+    occ = ~free & (lo64 > np.log(cfg.min_probability
+                                 / (1.0 - cfg.min_probability)))
+    for name, mask in (("free", free), ("occupied", occ),
+                       ("unknown", ~free & ~occ)):
+        pts, probs = cloud[name]
+        want_pts = (keys[mask].astype(np.float64) + 0.5) * cfg.voxel_resolution
+        order, w_order = np.lexsort(pts.T), np.lexsort(want_pts.T)
+        if not (np.array_equal(pts[order], want_pts[w_order]) and np.array_equal(
+                probs[order], (1.0 / (1.0 + np.exp(-lo64[mask])))[w_order])):
+            raise AssertionError(f"sharded classified {name} cloud differs "
+                                 f"from phase 2's map")
+    pts = _query_points(keys, cfg.voxel_resolution, np.random.default_rng(9))
+    want, _ = _host_probabilities(pts, keys, lo, cfg.voxel_resolution)
+    got, query_s = _wall(lambda: m.query_probabilities(pts))
+    if not np.array_equal(got, want):
+        raise AssertionError(f"sharded query_probabilities differ from the "
+                             f"host's: max |diff| {np.abs(got - want).max()}")
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    path = os.path.join(work, "sharded.npz")
+    _, save_s = _wall(lambda: save_map(path, m.state, cfg))
+    (sh, _), load_sh_s = _wall(lambda: load_map_sharded_brick(path, mesh=mesh))
+    for a, b in zip(sh.shards, m.state.shards):
+        if not all(np.array_equal(u, v) for u, v in zip(
+                _by_key(touched_voxels_brick(a)),
+                _by_key(touched_voxels_brick(b)))):
+            raise AssertionError("load_map_sharded_brick put a voxel on "
+                                 "another shard or changed it")
+    (st, _), load_s = _wall(lambda: load_map_brick(path, device=dev))
+    _same_voxels(_touched(st), (keys, lo), 0.0, "load_map_brick of the "
+                 "sharded snapshot")
+
+    bag, snap = (os.path.join(work, f) for f in ("cli.db3", "sharded_cli.npz"))
+    if os.path.exists(snap):
+        os.unlink(snap)
+    out, proc_s = _cli("map-bag", bag, "--offline", "--window", "16",
+                       "--backend", "brick-sharded", "--shards",
+                       str(SHARDED_S), "--save-map", snap)
+    summary = json.loads(out.splitlines()[-1])
+    if (summary["num_voxels"] != brick_cli_voxels
+            or summary["shards"] != SHARDED_S or summary["device"] != str(dev)
+            or summary["bin_apply_launches"] == 0):
+        raise AssertionError(f"map-bag --backend brick-sharded summary "
+                             f"{summary} against {brick_cli_voxels} brick "
+                             f"voxels")
+    snaps = []
+    for f in (snap, os.path.join(work, "cli.npz")):
+        with np.load(f) as z:
+            snaps.append(_by_key((z["keys"], z["log_odds"])))
+    _same_voxels(snaps[0], snaps[1], 0.0, "map-bag brick-sharded vs brick")
+    print(
+        f"phase 9c sharded entry points, SonarMapper(backend=\"brick-"
+        f"sharded\") on {dev} x {SHARDED_S}: {ENTRY_PINGS} bench pings "
+        f"through process_sonar_image: first {ms[0]:.1f} ms, then median "
+        f"{np.median(warm):.2f} ms, max {warm.max():.2f} ms per ping, "
+        f"{ping_launches} bin_apply launches; map_sequence of 256 pings, "
+        f"window 16: {voxels} voxels and log-odds equal phase 2's map, "
+        f"{seq_s:.3f} s, {seq_launches} bin_apply launches; classified cloud"
+        f" ({cloud['num_occupied']} occupied, {cloud['num_free']} free, "
+        f"{cloud['num_unknown']} unknown) equal to phase 2's map's, "
+        f"{cloud_s:.3f} s; {len(pts)} point queries equal to the host's, "
+        f"{query_s * 1e3:.1f} ms; save_map {save_s:.3f} s, "
+        f"load_map_sharded_brick {load_sh_s:.3f} s (every voxel on its "
+        f"shard, bit-equal), load_map_brick {load_s:.3f} s (bit-equal); "
+        f"map-bag --offline --backend brick-sharded --shards {SHARDED_S}: "
+        f"{summary['num_voxels']} voxels and log-odds equal the brick run's "
+        f"snapshot, map {summary['map_time']:.3f} s, "
+        f"{summary['pings_per_sec']:.1f} pings/s, "
+        f"{summary['bin_apply_launches']} bin_apply launches, process "
+        f"{proc_s:.1f} s [{smi}]",
+        flush=True,
+    )
+    return ({"mapper.process_sonar_image (brick-sharded)": ping_launches,
+             "mapper.map_sequence (brick-sharded)": seq_launches,
+             "cli map-bag (brick-sharded)": summary["bin_apply_launches"]},
+            dict(process_sonar_image_ms=float(np.median(warm)),
+                 first_ping_ms=ms[0], map_sequence_s=seq_s,
+                 point_cloud_s=cloud_s, query_ms=query_s * 1e3,
+                 save_map_s=save_s, load_map_sharded_brick_s=load_sh_s,
+                 load_map_brick_s=load_s, cli_map_time_s=summary["map_time"],
+                 cli_pings_per_sec=summary["pings_per_sec"],
+                 cli_process_s=proc_s))
+
+
+def _sharded_stream_and_node(dev, smi, main_voxels):
+    """9d: the survey through StreamingMapper(backend="brick-sharded") at
+    chunk 16 on (card,) * SHARDED_S, against phase 2's map; the node with
+    map_backend "brick-sharded" (every visible card a shard), against a
+    CPU mapper of as many shards.  Returns ({path: K1 launches}, facts)."""
+    msgs = _survey_msgs(STREAM_PINGS)
+    what = "stream (brick-sharded)"
+    (sm, n), wall = _wall(lambda: _k1_launches_of(
+        lambda: _stream(msgs, dev, chunk_size=16, window=16,
+                        backend="brick-sharded", mesh=(dev,) * SHARDED_S),
+        what=what))
+    voxels, _, _ = _same_voxels(_touched(sm.state), _by_key(main_voxels), 0.0,
+                                "sharded stream vs phase 2's map")
+    if sm.stats.frames_mapped != len(msgs):
+        raise AssertionError(f"sharded stream: {sm.stats.summary()}")
+    node_launches, node = _node(dev, smi, msgs, backend="brick-sharded")
+    lat = sm.stats.summary()["latency_p50_s"] * 1e3
+    print(
+        f"phase 9d {what}: {len(msgs)} pings as message pairs, chunk 16, "
+        f"window 16, {SHARDED_S} shards on {dev}: {voxels} voxels and "
+        f"log-odds equal phase 2's map (tolerance 0); wall {wall:.3f} s, "
+        f"{len(msgs) / wall:.1f} pings/s, latency p50 {lat:.1f} ms, {n} "
+        f"bin_apply launches, {sm.stats.grows} table doublings [{smi}]",
+        flush=True,
+    )
+    return ({what: n, "node (brick-sharded)": node_launches},
+            dict(stream_wall_s=wall, stream_pings_per_sec=len(msgs) / wall,
+                 stream_latency_p50_ms=lat, node=node))
+
+
+def _sharded_float64(dev, smi):
+    """9e: F64_PINGS pings in float64 at SHARDED_S shards, window 8, on the
+    card and the CPU: per-ping stats and every array of every shard
+    bit-equal.  Also the occupied fan's trig lookup (ops/backproject.
+    _fan_trig) against direct evaluation on the card, every fan count.
+    Returns facts."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        _fan_trig,
+        build_fan_tables,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded_frames,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        sharded_brick_state_to_numpy,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, F64_PINGS)
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        (st, stats), secs = _wall(lambda: map_ping_sequence_sharded_frames(
+            images, positions, quats, cfg, mesh=(device,) * SHARDED_S,
+            window=8, dtype=torch.float64))
+        out[name] = (stats, sharded_brick_state_to_numpy(st), secs)
+    (g_stats, g, g_s), (c_stats, c, c_s) = out["gpu"], out["cpu"]
+    for k in g_stats:
+        if not np.array_equal(g_stats[k], c_stats[k]):
+            raise AssertionError(f"sharded float64: per-ping {k} differs")
+    for k in g:
+        if g[k].shape != c[k].shape or not np.array_equal(g[k], c[k]):
+            raise AssertionError(f"sharded float64: shard arrays {k} differ")
+
+    tables = build_fan_tables(cfg, 500, 512)
+    for dtype in (torch.float32, torch.float64):
+        cos_t, sin_t, steps = _fan_trig(tables, dev, dtype,
+                                        cfg.half_aperture_rad)
+        nv = torch.arange(1, cos_t.shape[0], device=dev).repeat(4096)[:, None]
+        vang = (steps[None, :].to(dtype) / nv.to(dtype) * torch.full(
+            (), cfg.half_aperture_rad, dtype=dtype, device=dev))
+        if not (torch.equal(torch.cos(vang), cos_t[nv[:, 0]])
+                and torch.equal(torch.sin(vang), sin_t[nv[:, 0]])):
+            raise AssertionError(f"the fan trig lookup differs from direct "
+                                 f"evaluation on the card ({dtype})")
+    n_vox = int(g["used"].sum())
+    print(
+        f"phase 9e sharded float64: {F64_PINGS} pings of 500x512, window 8, "
+        f"{SHARDED_S} shards, card vs CPU: per-ping stats and every array "
+        f"of every shard bit-equal ({n_vox} voxels, per shard "
+        f"{g['used'].tolist()}); card {g_s:.3f} s, CPU {c_s:.3f} s; the "
+        f"fan trig lookup equals direct cos/sin on the card for every fan "
+        f"count ({cos_t.shape[0] - 1}) in float32 and float64 [{smi}]",
+        flush=True,
+    )
+    return dict(voxels=n_vox, card_s=g_s, cpu_s=c_s)
+
+
+def phase_sharded(dev, smi, main_voxels, main_stats, wide_voxels,
+                  brick_cli_voxels):
+    """Phase 9: the frame-parallel sharded brick engine on one card.
+    Returns ({path: K1 launches}, measured numbers)."""
+    t0 = time.perf_counter()
+    launches, main = _sharded_main(dev, smi, main_voxels, main_stats)
+    launches[f"sharded frames, wide keys (S={SHARDED_S})"], wide = (
+        _sharded_wide(dev, smi, wide_voxels))
+    entry_launches, entry = _sharded_entry_points(dev, smi, main_voxels,
+                                                  brick_cli_voxels)
+    stream_launches, stream = _sharded_stream_and_node(dev, smi, main_voxels)
+    f64 = _sharded_float64(dev, smi)
+    print(f"phase 9 sharded brick engine: {time.perf_counter() - t0:.1f} s "
+          f"[{smi}]", flush=True)
+    return {**launches, **entry_launches, **stream_launches}, dict(
+        sharded=main, sharded_wide=wide, sharded_entry_points=entry,
+        sharded_stream=stream, sharded_float64=f64)
+
+
 def main() -> int:
     import torch
 
@@ -2439,11 +2883,15 @@ def main() -> int:
     stream_launches, stream = phase_stream(
         dev, smi, main_voxels, entry["process_sonar_image_ms"],
         entry["cli_map_bag"]["num_voxels"])
-    wide_launches, hash_wide, hash_voxels = phase_hash_and_wide(
+    wide_launches, hash_wide, hash_voxels, wide_voxels = phase_hash_and_wide(
         dev, smi, main_voxels, main_stats, entry["cli_map_bag"]["num_voxels"])
     late_launches, dense_fold = phase_dense_and_multihost(
         dev, smi, main_voxels, main_stats, hash_voxels)
     del hash_voxels
+    sharded_launches, sharded = phase_sharded(
+        dev, smi, main_voxels, main_stats, wide_voxels,
+        entry["cli_map_bag"]["num_voxels"])
+    del wide_voxels
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -2453,9 +2901,9 @@ def main() -> int:
         ("bin_apply", bin_src, bin_tpu, k1_launches,
          dict(main=k1_launches, **entry_launches,
               **stream_launches["bin_apply"], **wide_launches,
-              **late_launches),
+              **late_launches, **sharded_launches),
          dict(k1, entry_points=entry, stream=stream, **hash_wide,
-              **dense_fold)),
+              **dense_fold, **sharded)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
           **stream_launches["bin_apply_raw"]}, k1_raw),

@@ -11,11 +11,11 @@
 
   python -m sonar_3d_reconstruction_tpu_torch map-bag BAG [--chunk C]
       [--publish] [--config YAML] [--param K=V] [--window W]
-      [--backend brick|hash] [--save-map OUT.npz] [--save-cloud OUT.pc2]
-      [--device D]
+      [--backend brick|brick-sharded|hash] [--shards N]
+      [--save-map OUT.npz] [--save-cloud OUT.pc2] [--device D]
       Replay the bag through the streaming runtime (stream.StreamingMapper,
-      brick backend unless --backend hash): pings are paired with odometry
-      as they arrive and
+      brick backend unless --backend says otherwise): pings are paired
+      with odometry as they arrive and
       mapped in chunks of C, windows of W; --publish attaches a counting
       publish sink at the config's publish_rate_hz (stream time).  Prints
       one JSON line: the stream's summary (counters, latency p50/p95/max),
@@ -24,9 +24,10 @@
 
   python -m sonar_3d_reconstruction_tpu_torch map-bag BAG --offline [...]
       Decode and pair the whole bag, then map it in windows of W pings
-      (pipeline.map_ping_sequence, either backend); prints one JSON line
-      (pairs, voxels, load and map seconds, pings/s, realtime factor, the
-      device and the binning kernel's launches).
+      (pipeline.map_ping_sequence, or the frame-parallel engine for
+      brick-sharded); prints one JSON line (pairs, voxels, load and map
+      seconds, pings/s, realtime factor, the device and the binning
+      kernel's launches).
 
   python -m sonar_3d_reconstruction_tpu_torch query MAP.npz X,Y,Z [...]
       [--device D]
@@ -35,7 +36,10 @@
 
 Commands that map or query run on ``--device``: the first CUDA device by
 default, which they require (exit code 1 without one); ``--device cpu``
-runs them on the CPU.  Config layering: --param overrides > --config YAML >
+runs them on the CPU.  ``--backend brick-sharded`` shards the brick map
+over ``--shards N`` copies of that device (N shards on one device), by
+default one shard per visible card (one shard on an explicit
+``--device``).  Config layering: --param overrides > --config YAML >
 library defaults.
 """
 
@@ -76,6 +80,18 @@ def _device(args: argparse.Namespace):
         return require_cuda()
     except RuntimeError as e:
         raise SystemExit(f"{e}; pass --device cpu to run on the CPU") from e
+
+
+def _mesh(args: argparse.Namespace, device):
+    """The sharded backend's mesh: ``--shards`` copies of ``device``, or
+    one shard per visible card (the one ``--device`` when given)."""
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard import make_mesh
+
+    if args.shards is not None:
+        if args.shards < 1:
+            raise SystemExit(f"--shards must be at least 1, got {args.shards}")
+        return make_mesh([device] * args.shards)
+    return make_mesh(None if args.device is None else [device])
 
 
 def cmd_selftest(args: argparse.Namespace) -> int:
@@ -136,10 +152,11 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
             published["points"] = msg["width"]
             published["bytes"] += len(msg["data"])
 
+    mesh = _mesh(args, device) if args.backend == "brick-sharded" else None
     mapper = StreamingMapper(
         cfg, stream_cfg, chunk_size=args.chunk, window=args.window,
         dtype=torch.float32, publish=pub_cb, backend=args.backend,
-        device=device,
+        device=device, mesh=mesh,
     )
     k1_before = bin_apply.launches
     t0 = time.perf_counter()
@@ -152,8 +169,10 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
         s["publishes"] = published["n"]
         s["last_publish_points"] = published["points"]
         s["publish_bytes"] = published["bytes"]
-    s["num_voxels"] = int(mapper.state.used)
+    s["num_voxels"] = int(mapper.state.used.sum())
     s["device"] = str(device)
+    if mesh is not None:
+        s["shards"] = len(mesh)
     # the binning kernel's launches (0 on the CPU, which runs its plain
     # version)
     s["bin_apply_launches"] = bin_apply.launches - k1_before
@@ -175,6 +194,9 @@ def _map_bag_offline(args, device, cfg, stream_cfg) -> int:
 
     from sonar_3d_reconstruction_tpu_torch.io.bag import load_bag_sequence
     from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_frames import (
+        map_ping_sequence_sharded_frames,
+    )
     from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
     t0 = time.perf_counter()
@@ -185,19 +207,28 @@ def _map_bag_offline(args, device, cfg, stream_cfg) -> int:
         slop=stream_cfg.sync_slop,
     )
     t_load = time.perf_counter() - t0
+    mesh = _mesh(args, device) if args.backend == "brick-sharded" else None
     t0 = time.perf_counter()
     k1_before = bin_apply.launches
-    state, _ = map_ping_sequence(
-        images, positions, quats, cfg, device=device, dtype=torch.float32,
-        window=args.window, backend=args.backend,
-    )
-    num_voxels = int(state.used)  # waits for the device
+    if mesh is not None:
+        state, _ = map_ping_sequence_sharded_frames(
+            images, positions, quats, cfg, mesh=mesh, dtype=torch.float32,
+            window=args.window,
+        )
+    else:
+        state, _ = map_ping_sequence(
+            images, positions, quats, cfg, device=device,
+            dtype=torch.float32, window=args.window, backend=args.backend,
+        )
+    num_voxels = int(state.used.sum())  # waits for the device
     t_map = time.perf_counter() - t0
     n = len(images)
     span = float(stamps[-1] - stamps[0]) if n > 1 else 0.0
+    shards = {} if mesh is None else {"shards": len(mesh)}
     print(
         json.dumps(
             {
+                **shards,
                 "pairs": n,
                 "num_voxels": num_voxels,
                 "load_time": t_load,
@@ -225,9 +256,13 @@ def _map_bag_offline(args, device, cfg, stream_cfg) -> int:
         from sonar_3d_reconstruction_tpu_torch.io.pointcloud import (
             serialize_pointcloud2,
         )
+        from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+            extract_occupied_sharded,
+        )
 
-        extract = (extract_occupied_hash if args.backend == "hash"
-                   else extract_occupied_brick)
+        extract = {"brick": extract_occupied_brick,
+                   "brick-sharded": extract_occupied_sharded,
+                   "hash": extract_occupied_hash}[args.backend]
         pts, probs = extract(state, cfg)
         with open(args.save_cloud, "wb") as f:
             f.write(serialize_pointcloud2(pts, probs)["data"])
@@ -310,8 +345,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="config override (highest priority), repeatable",
     )
     p.add_argument(
-        "--backend", choices=("brick", "hash"), default="brick",
-        help="map backend: the brick table (default) or the per-voxel hash",
+        "--backend", choices=("brick", "brick-sharded", "hash"),
+        default="brick",
+        help="map backend: the brick table (default), the brick table "
+        "sharded over a mesh of devices, or the per-voxel hash",
+    )
+    p.add_argument(
+        "--shards", type=int, default=None, metavar="N",
+        help="brick-sharded: N shards, all on --device (default: one shard "
+        "per visible card, or one on an explicit --device)",
     )
     p.add_argument(
         "--offline", action="store_true",

@@ -1,12 +1,13 @@
 """SonarMapper — the stateful reference-parity API (PyTorch port of
-``sonar_3d_reconstruction_tpu.models.mapper``: brick, hash and dense
-backends).
+``sonar_3d_reconstruction_tpu.models.mapper``: brick, sharded brick, hash
+and dense backends).
 
 Same surface as the reference ``SonarTo3DMapper`` (scripts/3d_mapper.py:
 197-650): ``process_sonar_image(polar_image, position, quaternion) ->
 stats`` and ``get_point_cloud(include_free) -> dict``, with the same result
 fields, over a brick, hash or dense map on one device (the first CUDA
-device unless the caller names another).  The port's default backend is
+device unless the caller names another) or a brick map sharded over a
+mesh of devices.  The port's default backend is
 ``"brick"``; the JAX mapper's is ``"hash"``.
 
 Brick: ``process_sonar_image`` and ``map_sequence`` go through
@@ -22,6 +23,14 @@ window=1)``, one ``update_hash_grid`` as in the JAX mapper.  Before it the
 table doubles once more than a quarter of its slots are used (the JAX
 mapper's proactive growth); a bucket overflow doubles it again and replays
 the ping.  ``map_sequence`` goes through the same call.
+
+Sharded brick (``backend="brick-sharded"``, ``mesh=``): a ping and
+``map_sequence`` go through the frame-parallel engine
+(``parallel.map_ping_sequence_sharded_frames``), each shard's window
+apply through K1; its grown state is kept.  The mesh is a device list
+(repeats allowed): by default every visible card, or the one ``device``
+given.  Reads run per shard and concatenate (point log-odds: summed), as
+in the JAX mapper.
 
 Dense: a ping goes through ``map_ping_sequence(backend="dense")`` into a
 bounded grid (``dense_spec``, default +-(max_range + 2 m)), as the JAX
@@ -55,10 +64,14 @@ from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
 )
 from sonar_3d_reconstruction_tpu_torch.ops.packing import unpack_keys
 from sonar_3d_reconstruction_tpu_torch.ops.records import frame_records
+from sonar_3d_reconstruction_tpu_torch.parallel import shard_brick
+from sonar_3d_reconstruction_tpu_torch.parallel.shard import mesh_for
+from sonar_3d_reconstruction_tpu_torch.parallel.shard_frames import (
+    map_ping_sequence_sharded_frames,
+)
 from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
-# backends of the JAX mapper and the ROADMAP items that port them
-_NOT_PORTED = {"brick-sharded": 18}
+BACKENDS = ("brick", "brick-sharded", "hash", "dense")
 
 # the hash table doubles before a ping once more than this share of its
 # slots is used (the JAX mapper's bound: buckets of 128 at a mean fill of
@@ -72,6 +85,10 @@ _READS = {
               brick.query_log_odds_brick, brick.query_probability_brick),
     "hash": (hash_grid.extract_occupied_hash, hash_grid.extract_classified_hash,
              hash_grid.query_log_odds, hash_grid.query_probability),
+    "brick-sharded": (shard_brick.extract_occupied_sharded,
+                      shard_brick.extract_classified_sharded,
+                      shard_brick.query_log_odds_sharded,
+                      shard_brick.query_probability_sharded),
 }
 
 
@@ -94,7 +111,10 @@ def _dense_reads(spec: dense.DenseGridSpec):
 class SonarMapper:
     """Stateful sonar-to-3D mapper (reference SonarTo3DMapper parity,
     3d_mapper.py:197-650) over a brick, hash or dense map on ``device``:
-    the first CUDA device when None (RuntimeError where there is none)."""
+    the first CUDA device when None (RuntimeError where there is none).
+    ``backend="brick-sharded"`` shards the brick map over ``mesh`` (a
+    device list; None: ``[device]`` when a device is given, else every
+    visible card)."""
 
     def __init__(
         self,
@@ -106,6 +126,7 @@ class SonarMapper:
         dtype: torch.dtype = torch.float32,
         track_update_counts: bool = False,
         device=None,
+        mesh=None,
     ):
         if config is None:
             self.cfg = MapperConfig()
@@ -113,20 +134,27 @@ class SonarMapper:
             self.cfg = config
         else:  # dict in library-level units (reference 3d_mapper.py:252-254)
             self.cfg = config_from_dict(config)
-        if backend in _NOT_PORTED:
-            raise ValueError(
-                f"backend {backend!r} is not ported yet (ROADMAP item "
-                f"{_NOT_PORTED[backend]}); use 'brick', 'hash' or 'dense'"
-            )
-        if backend not in ("brick", "hash", "dense"):
+        if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self.dtype = dtype
-        self.device = (require_cuda() if device is None
-                       else torch.empty(0, device=device).device)
+        self.mesh = None
+        if backend == "brick-sharded":
+            self.mesh = mesh_for(mesh, device)
+            self.device = self.mesh[0]
+        else:
+            self.device = (require_cuda() if device is None
+                           else torch.empty(0, device=device).device)
         self._read = _READS.get(backend)
         self.dense_spec = None
-        if backend == "dense":
+        if backend == "brick-sharded":
+            self.state = shard_brick.init_sharded_brick_grid(
+                self.mesh,
+                shard_brick.default_local_capacity(initial_capacity,
+                                                   len(self.mesh)),
+                dtype,
+            )
+        elif backend == "dense":
             self.dense_spec = dense_spec or dense.default_dense_spec(self.cfg)
             self.state = dense.init_dense_grid(self.dense_spec, dtype,
                                                self.device)
@@ -181,15 +209,27 @@ class SonarMapper:
             while int(self.state.used) > _MAX_LOAD * self.state.capacity:
                 self.state = hash_grid.rehash(self.state,
                                               2 * self.state.capacity)
-        self.state, seq_stats = map_ping_sequence(
-            images, positions, quats, self.cfg, device=self.device,
-            backend=self.backend, state=self.state, dtype=self.dtype,
-            window=1, tables=tables, dense_spec=self.dense_spec,
-        )
+        seq_stats = self._map(images, positions, quats, 1, tables)
         stats = {k: v[0] for k, v in seq_stats.items()}
         if self.track_update_counts:
             self._record_update_counts(images, positions, quats, tables)
         return self._finish_ping(stats, t0)
+
+    def _map(self, images, positions, quaternions, window: int,
+             tables: Optional[FanTables] = None) -> Dict[str, np.ndarray]:
+        """Map pings into this mapper's state; per-ping stats."""
+        if self.backend == "brick-sharded":
+            self.state, stats = map_ping_sequence_sharded_frames(
+                images, positions, quaternions, self.cfg, state=self.state,
+                dtype=self.dtype, window=window, tables=tables,
+            )
+        else:
+            self.state, stats = map_ping_sequence(
+                images, positions, quaternions, self.cfg, device=self.device,
+                backend=self.backend, state=self.state, dtype=self.dtype,
+                window=window, tables=tables, dense_spec=self.dense_spec,
+            )
+        return stats
 
     def _finish_ping(self, stats, t0: float) -> Dict[str, Any]:
         """The reference-schema per-ping result (3d_mapper.py:587-595)."""
@@ -216,18 +256,15 @@ class SonarMapper:
         self, images, positions, quaternions, window: int = 1
     ) -> Dict[str, np.ndarray]:
         """Batch API: map a recorded sequence into this mapper's state
-        (``window`` pings per apply); returns per-ping stats arrays.  Brick
-        and hash backends, as in the JAX mapper."""
+        (``window`` pings per apply); returns per-ping stats arrays.  Brick,
+        sharded brick and hash backends, as in the JAX mapper."""
         if self.backend == "dense":
-            raise ValueError("map_sequence requires the hash or brick backend")
+            raise ValueError("map_sequence requires the hash or brick "
+                             "backend (brick sharded or not)")
         t0 = time.time()
         images = np.asarray(images)
         n = images.shape[0]
-        self.state, stats = map_ping_sequence(
-            images, positions, quaternions, self.cfg, device=self.device,
-            backend=self.backend, state=self.state, dtype=self.dtype,
-            window=window,
-        )
+        stats = self._map(images, positions, quaternions, max(1, window))
         if self.track_update_counts and n:
             self._record_update_counts(
                 images, positions, quaternions, self._tables_for(images.shape[1:])
@@ -324,7 +361,7 @@ class SonarMapper:
         """Touched voxels in the map."""
         if self.backend == "dense":
             return int(self.state.touched.sum())
-        return int(self.state.used)
+        return int(self.state.used.sum())  # per shard when sharded
 
     def get_point_cloud(self, include_free: bool = False) -> Dict[str, Any]:
         """Map extraction with the reference result schema
@@ -392,6 +429,11 @@ class SonarMapper:
         elif self.backend == "hash":
             self.state = hash_grid.init_hash_grid(
                 self.state.capacity, self.dtype, self.device
+            )
+        elif self.backend == "brick-sharded":
+            self.state = shard_brick.init_sharded_brick_grid(
+                self.mesh, self.state.local_capacity, self.dtype,
+                self.state.brick_bits,
             )
         else:
             self.state = brick.init_brick_grid(

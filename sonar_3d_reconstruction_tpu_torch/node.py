@@ -13,8 +13,9 @@ classified CUBE_LIST markers and the static base->sonar TF.
 The map lives on the first CUDA device, which the node requires; the
 ``device`` parameter names another ("cpu" maps on the CPU).
 ``map_backend`` is "brick" (the default), "hash" (the JAX node's
-default, kept for reference parity) or "dense" (the bounded grid of
-+-(max_range + 2 m), as in the JAX node).
+default, kept for reference parity), "dense" (the bounded grid of
++-(max_range + 2 m), as in the JAX node) or "brick-sharded" (the brick
+map sharded over every visible card, or over the one ``device`` given).
 
 rclpy is NOT a dependency of this package: importing this module without a
 ROS2 environment raises ImportError only when ``main``/``SonarMapperNode``
@@ -97,8 +98,8 @@ _NODE_PARAM_DEFAULTS: Dict[str, Any] = {
     # enables it, config/3d_mapper.yaml:62)
     "show_opencv_visualization": False,
     # EXTENSIONS beyond the reference's declared set: the map backend
-    # ("brick", "hash" or "dense") and the torch device ("" = the first
-    # CUDA device, required)
+    # ("brick", "hash", "dense" or "brick-sharded") and the torch device
+    # ("" = the first CUDA device, required)
     "map_backend": "brick",
     "device": "",
 }

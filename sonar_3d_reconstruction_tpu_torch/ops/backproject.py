@@ -277,6 +277,29 @@ def _device_tables(
     }
 
 
+@functools.lru_cache(maxsize=16)
+def _fan_trig(
+    tables: FanTables, device: torch.device, dtype: torch.dtype,
+    half_aperture: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The occupied fan's vertical trig for every fan count the tables
+    hold: ((nv_max + 1, S) cos and sin of ``step / max(nv, 1) *
+    half_aperture`` at row nv, (S,) steps -nvo_cap..nvo_cap), computed once
+    per (tables, device, dtype) with the same ops a per-candidate
+    evaluation takes, so a candidate's lookup is bit-equal to evaluating it.
+
+    ``occ_nv`` is exact and never capped, so its largest entry bounds every
+    fan count a ping can gather whatever the tables' caps.  The table is
+    small enough for one thread: a ping's first multi-threaded CPU cos in a
+    process returned some chunks at lower precision."""
+    nv = torch.clamp(torch.arange(int(tables.occ_nv.max()) + 1, device=device),
+                     min=1)[:, None]
+    steps = torch.arange(-tables.nvo_cap, tables.nvo_cap + 1, device=device)
+    vang = (steps[None, :].to(dtype) / nv.to(dtype)
+            * torch.full((), half_aperture, dtype=dtype, device=device))
+    return torch.cos(vang), torch.sin(vang), steps
+
+
 def _local_points(r, cos_v, sin_v, cos_b, sin_b):
     """Sonar-frame coordinates (+X fwd, +Y right with the reference's
     negated y, +Z down), multiplied in the reference's order
@@ -364,13 +387,12 @@ def backproject_ping(
     bin_hit = hit_nv > 0
     occ_r = occ_bin.to(dtype)[:, :, None] * const(cfg.max_range / R)
     # max(, 1) only guards the masked not-hit lanes' division
-    nv = torch.clamp(hit_nv, min=1)[:, :, None]
-    nvo_cap = tables.nvo_cap
-    steps = torch.arange(-nvo_cap, nvo_cap + 1, device=device)[None, None, :]
-    vang = steps.to(dtype) / nv.to(dtype) * const(cfg.half_aperture_rad)
-    occ_cos_v = torch.cos(vang)
-    occ_sin_v = torch.sin(vang)
-    step_ok = steps.abs() <= nv
+    nv = torch.clamp(hit_nv, min=1)
+    cos_t, sin_t, steps = _fan_trig(tables, device, dtype,
+                                    cfg.half_aperture_rad)
+    occ_cos_v = cos_t[nv]
+    occ_sin_v = sin_t[nv]
+    step_ok = steps.abs() <= nv[:, :, None]
     range_ok = (
         (occ_r >= const(cfg.min_range))
         & (occ_r <= const(cfg.max_range))

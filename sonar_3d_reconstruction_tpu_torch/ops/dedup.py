@@ -23,6 +23,13 @@ code (ops/packing.key_code) with the occupied bit below it, and the
 record's (count, n_occ) come from the lane index and the occupied cumsum
 of its segment end, exactly, with no packing width to overflow.
 
+The grouped forms (``dedup_frame_grouped``, ``dedup_frame_compact_grouped``)
+order records by (group, key) instead of key, so each group's records are
+contiguous: the shape the frame-parallel exchange cuts into per-owner
+blocks (parallel/shard_frames.py).  The group must be a pure function of
+the voxel key (the brick's owner shard), so equal voxels stay in one
+segment.
+
 The JAX functions truncate records to a static unique budget.  Here the
 output keeps the full candidate width (valid records first, empty lanes
 after), so there is no budget and no overflow; the window engine slices it
@@ -31,7 +38,7 @@ to the window's largest ``n_unique``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -59,25 +66,16 @@ class UniqueRecords(NamedTuple):
         return self.hi != EMPTY_HI
 
 
-def dedup_frame(
-    hi: torch.Tensor,
-    lo: torch.Tensor,
-    occ: torch.Tensor,
-    valid: torch.Tensor,
-    brick: bool,
-) -> UniqueRecords:
-    """(N,) two-word keys (brick codes when ``brick``, else voxel codes),
-    occupied flags and emission mask -> UniqueRecords of width N.
-
-    One sort of ``code << 1 | occ`` (61 bits; invalid lanes EMPTY64, last)
-    groups each voxel's candidates; a second compacts the segment ends, in
-    key order, whose lane indices and occupied cumsums give each record's
-    count and n_occ as adjacent differences."""
-    n = hi.shape[0]
-    device = hi.device
-    code = key_code(hi, lo, brick)
+def _dedup_codes(code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor):
+    """The two-word dedup on (N,) 60-bit codes: (record codes in ascending
+    order, count, n_occ, valid lanes, n_unique, the sort's lane
+    permutation, each record's segment-end lane in sorted order), each of
+    width N (unused lanes after the records hold garbage the caller masks
+    with the valid lanes).  ``perm[end]`` is each record's input lane."""
+    n = code.shape[0]
+    device = code.device
     skey = torch.where(valid, (code << 1) | occ.to(torch.int64), EMPTY64)
-    skey = torch.sort(skey).values
+    skey, perm = torch.sort(skey)
 
     vox = skey >> 1
     # invalid lanes sort past every record, so their sentinel's low bit
@@ -95,16 +93,67 @@ def dedup_frame(
     c_csum = csum_occ[end]
     prev_end = torch.cat([end.new_full((1,), -1), end[:-1]])
     prev_csum = torch.cat([c_csum.new_zeros(1), c_csum[:-1]])
-
     valid_u = torch.arange(n, device=device) < n_unique
+    return (c_vox, end - prev_end, c_csum - prev_csum, valid_u, n_unique,
+            perm, end)
+
+
+def dedup_frame(
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    occ: torch.Tensor,
+    valid: torch.Tensor,
+    brick: bool,
+) -> UniqueRecords:
+    """(N,) two-word keys (brick codes when ``brick``, else voxel codes),
+    occupied flags and emission mask -> UniqueRecords of width N.
+
+    One sort of ``code << 1 | occ`` (61 bits; invalid lanes EMPTY64, last)
+    groups each voxel's candidates; a second compacts the segment ends, in
+    key order, whose lane indices and occupied cumsums give each record's
+    count and n_occ as adjacent differences."""
+    c_vox, count, n_occ, valid_u, n_unique, _, _ = _dedup_codes(
+        key_code(hi, lo, brick), occ, valid)
     c_hi, c_lo = code_words(c_vox, brick)
     return UniqueRecords(
         hi=torch.where(valid_u, c_hi, EMPTY_HI),
         lo=torch.where(valid_u, c_lo, EMPTY_HI),
-        count=torch.where(valid_u, end - prev_end, 0),
-        n_occ=torch.where(valid_u, c_csum - prev_csum, 0),
+        count=torch.where(valid_u, count, 0),
+        n_occ=torch.where(valid_u, n_occ, 0),
         n_unique=n_unique,
     )
+
+
+def dedup_frame_grouped(
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    occ: torch.Tensor,
+    valid: torch.Tensor,
+    group: torch.Tensor,
+    n_groups: int,
+    brick: bool,
+) -> Tuple[UniqueRecords, torch.Tensor]:
+    """``dedup_frame`` with records ordered by (group, key): returns
+    (records, (N,) int64 group of each record, ``n_groups`` on unused
+    lanes), every group's records contiguous.
+
+    ``group`` (N,) must be a pure function of the key.  Counts come from
+    the key-ordered records, as in ``dedup_frame``; a stable sort on the
+    record groups then moves whole records, so (group, key) order costs
+    no change to the count arithmetic."""
+    c_vox, count, n_occ, valid_u, n_unique, perm, end = _dedup_codes(
+        key_code(hi, lo, brick), occ, valid)
+    rec_group = torch.where(valid_u, group.to(torch.int64)[perm[end]],
+                            n_groups)
+    rec_group, order = torch.sort(rec_group, stable=True)
+    c_hi, c_lo = code_words(c_vox[order], brick)
+    return UniqueRecords(
+        hi=torch.where(valid_u, c_hi, EMPTY_HI),
+        lo=torch.where(valid_u, c_lo, EMPTY_HI),
+        count=torch.where(valid_u, count[order], 0),
+        n_occ=torch.where(valid_u, n_occ[order], 0),
+        n_unique=n_unique,
+    ), rec_group
 
 
 class CompactRecords(NamedTuple):
@@ -182,3 +231,34 @@ def dedup_frame_compact(
         n_unique=n_unique,
         pack_fail=pack_fail,
     )
+
+
+def dedup_frame_compact_grouped(
+    key: torch.Tensor,
+    occ: torch.Tensor,
+    valid: torch.Tensor,
+    group: torch.Tensor,
+    n_groups: int,
+    key_bits: int,
+) -> Tuple[CompactRecords, torch.Tensor]:
+    """``dedup_frame_compact`` with records ordered by (group, key): returns
+    (records, (N,) int64 group of each record, ``n_groups`` on unused
+    lanes), every group's records contiguous.
+
+    The group folds into the sort word above the key: ``comb = group <<
+    key_bits | key`` is itself a compact key (the group is a pure function
+    of the key, so comb segments are key segments) and its order is (group,
+    key), so this is ``dedup_frame_compact`` on ``comb`` with the two split
+    back out.  ``key`` must be below 2^key_bits, and ``ceil(log2
+    n_groups) + key_bits + 1 <= 31`` (ValueError otherwise), the compact
+    dedup's own key width on comb."""
+    gbits = max(1, (max(n_groups - 1, 1)).bit_length())
+    if gbits + key_bits + 1 > 31:
+        raise ValueError(f"{n_groups} groups and {key_bits} key bits exceed "
+                         f"the compact dedup's 30-bit key")
+    comb = (group.to(torch.int64) << key_bits) | key
+    rec = dedup_frame_compact(comb, occ, valid)
+    valid_u = rec.valid
+    return rec._replace(
+        key=torch.where(valid_u, rec.key & ((1 << key_bits) - 1), EMPTY32),
+    ), torch.where(valid_u, rec.key >> key_bits, n_groups)

@@ -98,6 +98,19 @@ def frame_records(
     else:
         rec = dedup_frame_compact(bkey, cand["is_occupied"], valid)
 
+    return rec, frame_aux(keys, valid, range_fail, res)
+
+
+def frame_aux(
+    keys: torch.Tensor,
+    valid: torch.Tensor,
+    range_fail: torch.Tensor,
+    res: torch.Tensor,
+) -> FrameAux:
+    """A frame's FrameAux from its (N, 3) int32 voxel keys, the mask of its
+    valid (in-range) emissions and the voxel size ``res``, a 0-d tensor of
+    the map's dtype on the keys' device."""
+    dtype, device = res.dtype, keys.device
     # bounds reduce over int keys: k -> (k + 0.5) * res is exact and
     # monotone, so min/max commute with it
     imax = torch.iinfo(torch.int32).max
@@ -110,10 +123,9 @@ def frame_records(
     def center(k):
         return (k.to(dtype) + 0.5) * res
 
-    aux = FrameAux(
+    return FrameAux(
         cmin=torch.where(any_valid, center(kmin), inf),
         cmax=torch.where(any_valid, center(kmax), -inf),
         range_fail=range_fail,
         n_valid=n_valid,
     )
-    return rec, aux

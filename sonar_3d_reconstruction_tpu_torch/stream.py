@@ -1,20 +1,22 @@
 """Streaming runtime: bag replay -> time sync -> chunked mapping (PyTorch
-port of ``sonar_3d_reconstruction_tpu.stream``, brick and hash backends).
+port of ``sonar_3d_reconstruction_tpu.stream``, brick, sharded brick and
+hash backends).
 
 The ROS-free equivalent of the reference node's ingest loop
 (scripts/3d_mapper_node.py:191-357): pair the sonar-image and odometry
 streams with the ±slop approximate time synchronizer, decode images, and
 map the paired pings in chunks, each chunk one call of
 ``pipeline.map_ping_sequence`` into the stream's map (window by window;
-the brick backend through the binning kernel K1).  A chunk is mapped as it
-is: eager PyTorch needs no padding to a static chunk, and growth with
-replay happens inside ``map_ping_sequence``.
+the brick backend through the binning kernel K1; the sharded brick
+backend through ``parallel.map_ping_sequence_sharded_frames``, K1 on every
+shard).  A chunk is mapped as it is: eager PyTorch needs no padding to a
+static chunk, and growth with replay happens inside the call.
 
 A ``publish`` callback fires at the configured rate in STREAM TIME (the
 reference publishes on a 10 Hz wall timer decoupled from ingest,
 node:227-231); offline replay maps that to bag timestamps.  Each tick
-extracts the occupied voxels of the whole map (``extract_occupied_brick``
-or ``extract_occupied_hash``).
+extracts the occupied voxels of the whole map (``extract_occupied_brick``,
+``extract_occupied_sharded`` or ``extract_occupied_hash``).
 """
 
 from __future__ import annotations
@@ -48,10 +50,21 @@ from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     required_free_cap,
     required_window_cap,
 )
+from sonar_3d_reconstruction_tpu_torch.parallel.shard import mesh_for
+from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+    default_local_capacity,
+    extract_occupied_sharded,
+    init_sharded_brick_grid,
+)
+from sonar_3d_reconstruction_tpu_torch.parallel.shard_frames import (
+    map_ping_sequence_sharded_frames,
+)
 from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
-# backends of the JAX stream and the ROADMAP items that port them
-_NOT_PORTED = {"brick-sharded": 18}
+BACKENDS = ("brick", "brick-sharded", "hash")
+_EXTRACT = {"brick": extract_occupied_brick,
+            "brick-sharded": extract_occupied_sharded,
+            "hash": extract_occupied_hash}
 
 # the candidate-lattice caps the stream grows, and what each pings need
 _CAP_NEEDS = {"fan": required_fan_cap, "window": required_window_cap,
@@ -112,7 +125,9 @@ class StreamStats:
 class StreamingMapper:
     """Chunked streaming front end over a brick or hash map on ``device``:
     the first CUDA device when None (RuntimeError where there is none; pass
-    "cpu" to map on the CPU).
+    "cpu" to map on the CPU), or a brick map sharded over ``mesh``
+    (``backend="brick-sharded"``; a device list, None: ``[device]`` when a
+    device is given, else every visible card).
 
     Feed pings/poses in any interleaving (``on_ping`` / ``on_pose``), or a
     whole bag (``run_bag``); ``finish()`` flushes the tail.  A ping waits
@@ -123,8 +138,9 @@ class StreamingMapper:
     The fan, window and free caps that size the candidate lattice grow to
     the largest the pings seen so far need, never shrinking, so the
     memoised fan tables are rebuilt only when a cap grows.  ``backend`` is
-    ``"brick"`` (the default; the JAX stream's is ``"hash"``) or ``"hash"``,
-    and ``dense_mode`` (brick) is ``"pallas"`` or ``"pallas-raw"``, as in
+    ``"brick"`` (the default; the JAX stream's is ``"hash"``),
+    ``"brick-sharded"`` or ``"hash"``, and ``dense_mode`` (both brick
+    backends) is ``"pallas"`` or ``"pallas-raw"``, as in
     ``map_ping_sequence``.  A chunk takes compact box keys when all of its
     windows fit them and two-word keys otherwise.  A chunk that fails (keys
     outside the packable range) raises; its frames are dropped and the map
@@ -144,13 +160,9 @@ class StreamingMapper:
         backend: str = "brick",
         dense_mode: str = "pallas",
         device=None,
+        mesh=None,
     ):
-        if backend in _NOT_PORTED:
-            raise ValueError(
-                f"backend {backend!r} is not ported yet (ROADMAP item "
-                f"{_NOT_PORTED[backend]}); use 'brick' or 'hash'"
-            )
-        if backend not in ("brick", "hash"):
+        if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         is_raw_mode(dense_mode)
         self.cfg = cfg or MapperConfig()
@@ -161,11 +173,21 @@ class StreamingMapper:
         self.publish = publish
         self.backend = backend
         self.dense_mode = dense_mode
-        self.device = (require_cuda() if device is None
-                       else torch.empty(0, device=device).device)
+        self.mesh = None
+        if backend == "brick-sharded":
+            self.mesh = mesh_for(mesh, device)
+            self.device = self.mesh[0]
+            self.state = init_sharded_brick_grid(
+                self.mesh,
+                default_local_capacity(initial_capacity, len(self.mesh)),
+                dtype,
+            )
+        else:
+            self.device = (require_cuda() if device is None
+                           else torch.empty(0, device=device).device)
         if backend == "hash":
             self.state = init_hash_grid(initial_capacity, dtype, self.device)
-        else:
+        elif backend == "brick":
             # capacity counts BRICKS (~1/30 of voxels on realistic surveys)
             self.state = init_brick_grid(
                 max(128, initial_capacity >> 4), dtype, self.device
@@ -264,13 +286,17 @@ class StreamingMapper:
         tables = self._resolve_tables(images)
         capacity = self.state.capacity
         t0 = time.perf_counter()
-        self.state, _ = map_ping_sequence(
-            images, positions, quats, self.cfg, device=self.device,
-            backend=self.backend, state=self.state, dtype=self.dtype,
-            window=self.window, dense_mode=self.dense_mode, tables=tables,
-        )
-        # map_ping_sequence copied the last window's stats to the host,
-        # which waited for the device: `done` is a commit time
+        kw = dict(state=self.state, dtype=self.dtype, window=self.window,
+                  dense_mode=self.dense_mode, tables=tables)
+        if self.backend == "brick-sharded":
+            self.state, _ = map_ping_sequence_sharded_frames(
+                images, positions, quats, self.cfg, **kw)
+        else:
+            self.state, _ = map_ping_sequence(
+                images, positions, quats, self.cfg, device=self.device,
+                backend=self.backend, **kw)
+        # the call copied the last window's stats to the host, which
+        # waited for the device: `done` is a commit time
         done = time.perf_counter()
         self.stats.grows += (self.state.capacity // capacity).bit_length() - 1
         self.stats.device_time += done - t0
@@ -293,9 +319,7 @@ class StreamingMapper:
 
     # -- extraction -----------------------------------------------------
     def pointcloud_msg(self, stamp: float = 0.0) -> Dict:
-        extract = (extract_occupied_hash if self.backend == "hash"
-                   else extract_occupied_brick)
-        points, probs = extract(self.state, self.cfg)
+        points, probs = _EXTRACT[self.backend](self.state, self.cfg)
         sec = int(stamp)
         nanosec = int(round((stamp - sec) * 1e9))
         if nanosec >= 1_000_000_000:  # rounding carry: nanosec must be < 1e9

@@ -186,3 +186,86 @@ def test_load_map_brick_runs_on_the_card_unless_told(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             load_map_brick(path)
+
+
+def test_sharded_snapshots_cross_packages(small_cfg, tmp_path):
+    """Sharded brick maps (four shards, float64) across both packages: a
+    snapshot of either package's sharded map loads into the other's with
+    every voxel on the same shard; the two snapshots hold the same voxels
+    in the same order; the port's loads into two shards, each voxel on
+    its brick's owner, and into a plain brick grid."""
+    import jax
+
+    from sonar_3d_reconstruction_tpu.parallel.shard import (
+        make_mesh as j_make_mesh,
+    )
+    from sonar_3d_reconstruction_tpu.parallel.shard_brick import (
+        local_brick_states as j_local_brick_states,
+    )
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
+        load_map_sharded_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.ops.packing import pack_brick_keys
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        ShardedBrickState,
+        local_brick_states,
+        owner_shard_brick,
+    )
+
+    j_mesh = j_make_mesh(jax.devices()[:4])
+    jm = JaxMapper(small_cfg, backend="brick-sharded", dtype=jnp.float64,
+                   initial_capacity=1 << 16, mesh=j_mesh)
+    tm = SonarMapper(port_cfg(small_cfg), backend="brick-sharded",
+                     dtype=torch.float64, initial_capacity=1 << 16,
+                     mesh=["cpu"] * 4)
+    positions, quats = circular_trajectory(4)
+    images = np.stack([synthetic_ping(100, 64, seed=330 + i)
+                       for i in range(4)])
+    jm.map_sequence(images, positions, quats, window=2)
+    tm.map_sequence(images, positions, quats, window=2)
+    t_path, j_path = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    save_map(t_path, tm.state, tm.cfg)
+    j_checkpoint.save_map(j_path, jm.state, jm.cfg)
+    got, want = read_npz(t_path), read_npz(j_path)
+    for k in ("keys", "min_bounds", "max_bounds"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["log_odds"], want["log_odds"], rtol=0,
+                               atol=EXP_ULP_TOL[torch.float64])
+
+    def shards(states, dump):
+        return [sorted_voxels(*dump(s)) for s in states]
+
+    port_map = shards(local_brick_states(tm.state), touched_voxels_brick)
+    jax_map = shards(j_local_brick_states(jm.state), j_touched_voxels_brick)
+    # JAX sharded snapshot -> port sharded map: JAX's shards exactly
+    state, cfg = load_map_sharded_brick(j_path, mesh=["cpu"] * 4)
+    assert isinstance(state, ShardedBrickState) and cfg == tm.cfg
+    assert state.dtype == torch.float64
+    for (k, v), (w_k, w_v) in zip(
+            shards(local_brick_states(state), touched_voxels_brick), jax_map):
+        np.testing.assert_array_equal(k, w_k)
+        np.testing.assert_array_equal(v, w_v)
+    np.testing.assert_array_equal(state.min_bounds.numpy(), want["min_bounds"])
+    # port sharded snapshot -> JAX sharded map: the port's shards exactly
+    j_state, _ = j_checkpoint.load_map_sharded_brick(
+        t_path, mesh=j_mesh, dtype=jnp.float64)
+    for (k, v), (w_k, w_v) in zip(
+            shards(j_local_brick_states(j_state), j_touched_voxels_brick),
+            port_map):
+        np.testing.assert_array_equal(k, w_k)
+        np.testing.assert_array_equal(v, w_v)
+    # any mesh size: each voxel on its brick's owner; a plain brick grid
+    two, _ = load_map_sharded_brick(t_path, mesh=["cpu"] * 2,
+                                    local_capacity=1 << 12)
+    assert {s.capacity for s in two.shards} == {1 << 12}
+    for s, (k, _) in enumerate(shards(local_brick_states(two),
+                                      touched_voxels_brick)):
+        hi, lo, _ = pack_brick_keys(torch.as_tensor(k), 2)
+        assert len(k) and (owner_shard_brick(hi, lo, 2, 2) == s).all()
+    assert sum(len(k) for k, _ in shards(two.shards, touched_voxels_brick)) \
+        == tm.num_voxels
+    brick, _ = load_map_brick(t_path, device="cpu")
+    assert int(brick.used) == tm.num_voxels
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load_map_sharded_brick(t_path)

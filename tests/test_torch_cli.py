@@ -126,6 +126,49 @@ def test_streaming_map_bag_matches_jax_cli(tmp_path, capsys):
     assert int(state.used) == got["num_voxels"] == off["num_voxels"] > 0
 
 
+def test_sharded_map_bag_matches_jax_cli(tmp_path, capsys):
+    """map-bag --backend brick-sharded, --offline and streaming: the port
+    on eight CPU shards (--shards 8) and the JAX CLI on its eight virtual
+    devices count the same pairs and voxels and save the same cloud, in
+    the same order; the offline snapshot holds the brick run's voxels."""
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import load_map_brick
+
+    bag = str(tmp_path / "survey.db3")
+    run(capsys, cli.main, "make-bag", bag, "--pings", "6", "--range-bins",
+        "60", "--bearing-bins", "48")
+    sharded = ["--backend", "brick-sharded"]
+    brick = json.loads(run(capsys, cli.main, "map-bag", bag, *COMMON,
+                           "--device", "cpu").splitlines()[-1])
+    for mode in (COMMON, COMMON[:4] + ["--chunk", "4", "--window", "2"]):
+        t_cloud, j_cloud = str(tmp_path / "t.pc2"), str(tmp_path / "j.pc2")
+        t_map = str(tmp_path / "t.npz")
+        got = json.loads(run(capsys, cli.main, "map-bag", bag, *mode,
+                             *sharded, "--shards", "8", "--device", "cpu",
+                             "--save-cloud", t_cloud,
+                             "--save-map", t_map).splitlines()[-1])
+        want = json.loads(run(capsys, j_cli.main, "map-bag", bag, *mode,
+                              *sharded, "--save-cloud",
+                              j_cloud).splitlines()[-1])
+        assert got["shards"] == 8 and got["device"] == "cpu"
+        assert got["pairs"] == want["pairs"] == 6
+        # the JAX stream's summary has no voxel count
+        assert got["num_voxels"] == want.get(
+            "num_voxels", brick["num_voxels"]) == brick["num_voxels"]
+        pts, probs = cloud(t_cloud)
+        j_pts, j_probs = cloud(j_cloud)
+        assert len(pts) > 0
+        np.testing.assert_array_equal(pts, j_pts)
+        np.testing.assert_allclose(probs, j_probs, rtol=0, atol=PROB_TOL)
+        state, _ = load_map_brick(t_map, device="cpu")
+        assert int(state.used) == brick["num_voxels"]
+    one = json.loads(run(capsys, cli.main, "map-bag", bag, *COMMON,
+                         *sharded, "--device", "cpu").splitlines()[-1])
+    assert one["shards"] == 1 and one["num_voxels"] == brick["num_voxels"]
+    with pytest.raises(SystemExit, match="--shards"):
+        cli.main(["map-bag", bag, *COMMON, *sharded, "--shards", "0",
+                  "--device", "cpu"])
+
+
 def test_selftest_matches_jax_cli(capsys):
     """The reference self-test scenario (500x512, 3 pings) prints the same
     per-frame stats and final map as the JAX package's selftest."""
@@ -167,6 +210,7 @@ def test_commands_refuse_what_is_not_ported(tmp_path, capsys):
     ["selftest"],
     ["map-bag", "BAG", "--offline"],
     ["map-bag", "BAG"],
+    ["map-bag", "BAG", "--offline", "--backend", "brick-sharded"],
     ["query", "MAP", "0,0,0"],
 ])
 def test_commands_need_the_card_unless_told(tmp_path, capsys, argv):

@@ -263,13 +263,83 @@ def test_config_module_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("backend,refusal", [
-    ("brick-sharded", "ROADMAP item 18"), ("octree", "unknown backend"),
+    ("brick-sharded", None), ("octree", "unknown backend"),
 ])
 def test_other_backends_are_refused(backend, refusal):
-    """The sharded backend waits for multi-GPU; a name no package knows is
-    refused.  Dense maps: tests/test_torch_dense.py."""
+    """A name no package knows is refused; the sharded backend maps (on
+    the one device given: one shard).  Dense maps:
+    tests/test_torch_dense.py."""
+    if refusal is None:
+        m = SonarMapper(backend=backend, device="cpu")
+        assert m.mesh == (torch.device("cpu"),) and m.device.type == "cpu"
+        img = synthetic_ping(500, 512, seed=1)
+        assert m.process_sonar_image(img, [0, 0, 0], [0, 0, 0, 1])[
+            "num_voxels"] == m.num_voxels > 0
+        return
     with pytest.raises(ValueError, match=refusal):
         SonarMapper(backend=backend, device="cpu")
+
+
+def test_sharded_mapper_matches_jax(small_cfg):
+    """backend="brick-sharded" over four shards against the JAX mapper on
+    four virtual devices, float64: per-ping stats, then map_sequence in
+    windows of 3; each shard's voxels, the point clouds (classified too)
+    in extraction order, bounds, point queries summed over the shards,
+    and reset_map."""
+    import jax
+
+    from sonar_3d_reconstruction_tpu.parallel.shard import (
+        make_mesh as j_make_mesh,
+    )
+    from sonar_3d_reconstruction_tpu.parallel.shard_brick import (
+        local_brick_states as j_local_brick_states,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        local_brick_states,
+    )
+
+    cfg = small_cfg
+    jm = JaxMapper(cfg, backend="brick-sharded", initial_capacity=1 << 16,
+                   dtype=jax.numpy.float64,
+                   mesh=j_make_mesh(jax.devices()[:4]))
+    tm = SonarMapper(port_cfg(cfg), backend="brick-sharded",
+                     initial_capacity=1 << 16, dtype=torch.float64,
+                     mesh=["cpu"] * 4)
+    assert tm.state.local_capacity == jm.state.local_capacity
+    images, positions, quats = survey(cfg, 8, seed=620)
+    for x in zip(images[:2], positions[:2], quats[:2]):
+        assert (without_times(tm.process_sonar_image(*x))
+                == without_times(jm.process_sonar_image(*x)))
+    got = tm.map_sequence(images[2:], positions[2:], quats[2:], window=3)
+    want = jm.map_sequence(images[2:], positions[2:], quats[2:], window=3)
+    for k in ("num_occupied", "num_free", "num_candidates", "overflowed"):
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+    assert tm.frame_count == jm.frame_count == 8
+    assert tm.num_voxels == jm.num_voxels
+    for t_s, j_s in zip(local_brick_states(tm.state),
+                        j_local_brick_states(jm.state)):
+        assert_same_voxels(t_s, j_s, torch.float64)
+    tol = EXP_ULP_TOL[torch.float64]
+    t_cloud, j_cloud = tm.get_point_cloud(), jm.get_point_cloud()
+    assert_same_cloud((t_cloud["points"], t_cloud["probabilities"]),
+                      (j_cloud["points"], j_cloud["probabilities"]), tol)
+    t_cls = tm.get_point_cloud(include_free=True)
+    j_cls = jm.get_point_cloud(include_free=True)
+    for k in ("occupied", "free", "unknown"):
+        assert_same_cloud(t_cls[k], j_cls[k], tol)
+    for k in ("min", "max"):
+        np.testing.assert_array_equal(t_cls["bounds"][k],
+                                      np.asarray(j_cls["bounds"][k]))
+    pts = np.concatenate([t_cloud["points"][::7], [[50.0, 50.0, 50.0]]])
+    np.testing.assert_allclose(tm.query_probabilities(pts),
+                               jm.query_probabilities(pts), rtol=0, atol=tol)
+    x, y, z = pts[0]
+    assert abs(tm.get_log_odds(x, y, z) - jm.get_log_odds(x, y, z)) <= tol
+    assert tm.get_probability(50.0, 50.0, 50.0) == 0.5
+    cap = tm.state.local_capacity
+    tm.reset_map()
+    assert tm.num_voxels == 0 and tm.frame_count == 0
+    assert tm.state.local_capacity == cap and len(tm.state.shards) == 4
 
 
 def test_hash_backend_maps_like_the_brick_backend(small_cfg):

@@ -120,10 +120,12 @@ def test_ingest_through_synchronizer_and_publish(node_env):
 
 
 def test_map_backend_brick_default_and_hash_accepted(node_env):
-    """map_backend defaults to the brick map; "hash" and "dense" map the
-    same pair to the same occupied voxels; another name is refused."""
+    """map_backend defaults to the brick map; "hash", "dense" and
+    "brick-sharded" (one shard on the node's device) map the same pair to
+    the same occupied voxels; another name is refused."""
     clouds = []
-    for extra in ({}, {"map_backend": "hash"}, {"map_backend": "dense"}):
+    for extra in ({}, {"map_backend": "hash"}, {"map_backend": "dense"},
+                  {"map_backend": "brick-sharded"}):
         node = _make_node(node_env, **extra)
         assert node.mapper.backend == extra.get("map_backend", "brick")
         _deliver(node, synthetic_ping(32, 24, seed=77), (0, 0, 0), 60.0, 0.02)
@@ -339,6 +341,20 @@ def test_dense_node_cloud_matches_jax_node():
     default grid of +-(max_range + 2 m)): the published points equal the
     JAX dense node's in cell order, probabilities within 1e-5."""
     _assert_same_cloud(_published_by_both_nodes("dense"))
+
+
+def test_sharded_node_cloud_matches_jax_node():
+    """map_backend "brick-sharded": the port's node (one shard on its CPU
+    device) publishes the JAX sharded node's points (eight virtual
+    devices), in another shard order, probabilities within 1e-5."""
+    msgs = _published_by_both_nodes("brick-sharded")
+    for name in msgs:
+        xyzi = np.frombuffer(msgs[name].data, np.float32).reshape(-1, 4)
+        msgs[name] = xyzi[np.lexsort(xyzi[:, :3].T)]
+    assert len(msgs["port"]) > 0
+    np.testing.assert_array_equal(msgs["port"][:, :3], msgs["jax"][:, :3])
+    np.testing.assert_allclose(msgs["port"][:, 3], msgs["jax"][:, 3], rtol=0,
+                               atol=1e-5)
 
 
 def test_node_module_imports_without_ros2():

@@ -345,3 +345,46 @@ def test_raw_frame_records_match(small_cfg, t_dtype, j_dtype):
         np.testing.assert_array_equal(
             getattr(aux, k).numpy(), np.asarray(getattr(jaux, k)), k
         )
+
+
+# One process's first backprojection with several intra-op threads: each
+# run prints how many candidate points differ from its second
+# backprojection of the same ping.  PyTorch's CPU cos returned some chunks
+# of its first multi-threaded call in a process at lower precision (about
+# one process in five at 8 threads, up to 6e-4 m in float32 points),
+# which the backprojection met in its per-candidate fan trig.
+_FIRST_CALL_SCRIPT = """
+import numpy as np, torch
+torch.set_num_threads(8)
+from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+    backproject_ping, build_fan_tables)
+cfg = MapperConfig()
+img = np.random.default_rng(0).integers(0, 25, size=(500, 512)).astype(np.uint8)
+img[150:190, :] = 150
+tables = build_fan_tables(cfg, 500, 512)
+T = torch.eye(4, dtype=torch.float64)
+a, b = (backproject_ping(torch.as_tensor(img), T, tables, cfg)["points"]
+        for _ in range(2))
+print(int((a != b).any(dim=1).sum()))
+"""
+
+
+def test_first_multithreaded_backprojection_is_exact():
+    """Eight fresh processes at eight intra-op threads, one after another
+    (run side by side, the fault showed in none of 16), each one's first
+    full-size backprojection against its second: bit-equal in all."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    moved = []
+    for _ in range(8):
+        proc = subprocess.run([sys.executable, "-c", _FIRST_CALL_SCRIPT],
+                              env=env, cwd=root, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        moved.append(int(proc.stdout))
+    assert moved == [0] * 8

@@ -382,8 +382,8 @@ def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
 def test_port_runs_with_jax_blocked():
     """The port and its CPU path import neither jax nor the JAX package:
     the main path, the hash backend (pipeline, snapshot, mapper), wide
-    keys, the dense backend (pipeline, mapper), the multi-host fold,
-    every module of the port (the stream, the node and the debug
+    keys, the dense backend (pipeline, mapper), the multi-host fold, the
+    sharded brick engine (engine, snapshot, mapper), every module of the port (the stream, the node and the debug
     overlay included), a stream over the same pings, and the CLI's
     selftest."""
     code = textwrap.dedent("""
@@ -451,6 +451,20 @@ def test_port_runs_with_jax_blocked():
         m_st, _ = map_ping_sequence_multihost(images, pos, q, cfg, n_hosts=2,
                                               window=2, device="cpu")
         assert int(m_st.used) == int(st.used)
+        from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
+            load_map_sharded_brick)
+        from sonar_3d_reconstruction_tpu_torch.parallel import (
+            map_ping_sequence_sharded_frames)
+        s_st, s_stats = map_ping_sequence_sharded_frames(
+            images, pos, q, cfg, mesh=["cpu"] * 3, window=2)
+        assert int(s_st.used.sum()) == int(st.used)
+        assert (s_stats["num_occupied"] == stats["num_occupied"]).all()
+        save_map(snap, s_st, cfg)
+        l_st, _ = load_map_sharded_brick(snap, mesh=["cpu"] * 2)
+        assert int(l_st.used.sum()) == int(st.used)
+        sm = SonarMapper(cfg, backend="brick-sharded", mesh=["cpu"] * 2)
+        sm.map_sequence(images, pos, q, window=2)
+        assert sm.num_voxels == int(st.used)
         import runpy
         from sonar_3d_reconstruction_tpu_torch import cli, config
         from sonar_3d_reconstruction_tpu_torch.io import (

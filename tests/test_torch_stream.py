@@ -345,10 +345,74 @@ def test_stream_reuses_fan_tables_while_caps_hold(small_cfg):
     assert sm.stats.free_cap_recompiles == 1
 
 
-@pytest.mark.parametrize("backend,item", [("brick-sharded", 18)])
-def test_unported_backends_are_refused(small_cfg, backend, item):
-    with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
+@pytest.mark.parametrize("backend,refusal", [
+    ("brick-sharded", None), ("octree", "unknown backend"),
+])
+def test_unported_backends_are_refused(small_cfg, backend, refusal):
+    """A name no package knows is refused; the sharded backend streams (on
+    the one device given: one shard; against the JAX stream:
+    test_sharded_stream_matches_jax_stream)."""
+    if refusal is None:
+        sm = StreamingMapper(port_cfg(small_cfg), backend=backend,
+                             device="cpu")
+        assert sm.mesh == (torch.device("cpu"),) and sm.state.n_shards == 1
+        return
+    with pytest.raises(ValueError, match=refusal):
         StreamingMapper(port_cfg(small_cfg), backend=backend, device="cpu")
+
+
+def test_sharded_stream_matches_jax_stream(survey, small_cfg):
+    """backend="brick-sharded" over four shards, chunks and windows of 3,
+    from 8 bricks a shard: the JAX sharded stream's counters, each shard's
+    voxels and the published clouds (JAX: four virtual devices); the same
+    map as the single-card stream; table doublings counted."""
+    import jax
+
+    from sonar_3d_reconstruction_tpu.parallel.shard import (
+        make_mesh as j_make_mesh,
+    )
+    from sonar_3d_reconstruction_tpu.parallel.shard_brick import (
+        local_brick_states as j_local_brick_states,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        gather_sharded_brick_state,
+        local_brick_states,
+    )
+
+    published = []
+    sm = StreamingMapper(
+        port_cfg(small_cfg), StreamConfig(publish_rate_hz=2.0),
+        dtype=torch.float64, publish=published.append, chunk_size=3,
+        window=3, initial_capacity=1 << 9, backend="brick-sharded",
+        mesh=["cpu"] * 4)
+    assert sm.state.local_capacity == 128
+    sm.run_bag(survey["path"])
+    j_published = []
+    j_sm = JaxStream(SMALL_CFG, JStreamConfig(publish_rate_hz=2.0),
+                     dtype=jnp.float64, backend="brick-sharded",
+                     publish=j_published.append, chunk_size=3, window=3,
+                     initial_capacity=1 << 20,
+                     mesh=j_make_mesh(jax.devices()[:4]))
+    j_sm.run_bag(survey["path"])
+    assert_same_counters(sm.stats, j_sm.stats)
+    assert sm.stats.grows == (sm.state.local_capacity // 128).bit_length() - 1
+    assert sm.stats.grows > 0
+    for t_s, j_s in zip(local_brick_states(sm.state),
+                        j_local_brick_states(j_sm.state)):
+        assert_same_voxels(t_s, j_s, EXP_ULP_TOL[torch.float64])
+    assert len(published) == len(j_published) >= 2
+    for msg, j_msg in zip(published, j_published):
+        pts, probs = parse_pointcloud2(msg)
+        j_pts, j_probs = parse_pointcloud2(j_msg)
+        assert len(pts) > 0
+        np.testing.assert_array_equal(pts, j_pts)
+        np.testing.assert_allclose(probs, j_probs, rtol=0, atol=1e-6)
+    single, _ = stream(small_cfg, survey["path"], chunk_size=3, window=3)
+    keys, lo = gather_sharded_brick_state(sm.state)
+    want = touched_voxels_brick(single.state)
+    order, w_order = np.lexsort(keys.T), np.lexsort(want[0].T)
+    np.testing.assert_array_equal(keys[order], want[0][w_order])
+    np.testing.assert_array_equal(lo[order], want[1][w_order])
 
 
 def test_hash_stream_equals_hash_pipeline(survey, small_cfg):
