@@ -159,6 +159,26 @@ Phases (each prints its own line; any failure raises and exits non-zero):
       and every array of every shard bit-equal; the occupied fan's trig
       lookup against direct cos/sin on the card.
    Each path's K1 launches are counted as in phase 5.
+10. the replicated-records engines on the card (every shard computes
+   every frame's records; on one card the records half runs SHARDED_S
+   times), their mesh the card repeated SHARDED_S times:
+   a. phase 2's survey through ``parallel.map_ping_sequence_sharded``
+      (the sharded hash engine) at window 16, and its first HASH_W1_PINGS
+      pings at window 1: per-ping stats, voxels and log-odds equal 7a's
+      runs of the same pings, every voxel on its owner shard; wall,
+      pings/s, rehash calls, voxels per shard, peak memory, and the
+      applies' seconds against the rest of the wall (the records half);
+   b. ``save_map`` of that map: its snapshot's voxels, log-odds and
+      bounds equal 7a's snapshot (step 7c's file); ``load_map`` of it;
+   c. the survey through ``parallel.map_ping_sequence_sharded_brick``
+      (the replicated-records brick engine, two-word codes, K1) at window
+      16: stats, voxels and log-odds equal phase 2's; K1 against its
+      plain version on the widest shard window; K1 launches counted as in
+      phase 5;
+   d. F64_PINGS pings in float64 through both engines, card vs CPU:
+      per-ping stats and every array of every shard bit-equal;
+   e. ``utils.profiling.device_trace`` around one sharded hash window:
+      the Chrome trace it writes names CUDA kernels.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -1843,9 +1863,9 @@ def _by_key(voxels):
 
 
 def _touched(state, spec=None):
-    """(keys, log-odds) of a brick, sharded brick, hash or dense map's
-    touched voxels, sorted by key (a dense map's keys come from its
-    ``spec``)."""
+    """(keys, log-odds) of a brick, sharded brick, hash, sharded hash or
+    dense map's touched voxels, sorted by key (a dense map's keys come from
+    its ``spec``)."""
     import numpy as np
 
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
@@ -1854,6 +1874,10 @@ def _touched(state, spec=None):
     )
     from sonar_3d_reconstruction_tpu_torch.grid.dense import DenseGridState
     from sonar_3d_reconstruction_tpu_torch.grid.hash import touched_voxels_hash
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+        ShardedHashState,
+        touched_voxels_sharded,
+    )
     from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
         ShardedBrickState,
         gather_sharded_brick_state,
@@ -1861,6 +1885,8 @@ def _touched(state, spec=None):
 
     if isinstance(state, ShardedBrickState):
         return _by_key(gather_sharded_brick_state(state))
+    if isinstance(state, ShardedHashState):
+        return _by_key(touched_voxels_sharded(state))
     if isinstance(state, DenseGridState):
         flat = state.touched.nonzero().squeeze(1)
         keys = np.stack(np.unravel_index(flat.cpu().numpy(), spec.shape),
@@ -1882,23 +1908,31 @@ def _same_voxels(got, want, tol, what):
                              f"{len(w_keys)}, or the sets differ")
     diff = np.abs(lo.astype(np.float64) - w_lo.astype(np.float64))
     if diff.max() > tol:
-        raise AssertionError(f"{what}: log-odds differ by {diff.max()}")
+        raise AssertionError(f"{what}: {int((diff > tol).sum())} log-odds "
+                             f"differ, by up to {diff.max()}")
     return len(keys), float(diff.max()), int((lo != w_lo).sum())
 
 
-def _same_stats(got, want, what):
+def _same_stats(got, want, what, keys=PING_STATS):
+    """Per-ping stats equal; else the phase fails naming the first
+    differing pings."""
     import numpy as np
 
-    for k in PING_STATS:
-        if not np.array_equal(got[k], want[k]):
-            raise AssertionError(f"{what}: per-ping {k} differs")
+    for k in keys:
+        bad = np.flatnonzero(np.asarray(got[k]) != np.asarray(want[k]))
+        if len(bad):
+            raise AssertionError(
+                f"{what}: per-ping {k} differs at {len(bad)} pings, first "
+                f"{bad[:5].tolist()}: {np.asarray(got[k])[bad[:5]].tolist()}"
+                f" against {np.asarray(want[k])[bad[:5]].tolist()}")
 
 
 def _hash_main(dev, smi, main_voxels, main_stats):
     """7a: the survey through the hash backend in windows of 16 (twice; the
     second run is reported) and its first HASH_W1_PINGS pings one by one,
     against the brick maps of the same pings.  Returns (the hash map,
-    facts)."""
+    facts, the per-ping stats of both runs and the window-1 map's voxels
+    for phase 10)."""
     import torch
 
     from bench import make_inputs
@@ -1952,7 +1986,8 @@ def _hash_main(dev, smi, main_voxels, main_stats):
         f"not bit-equal [{smi}]",
         flush=True,
     )
-    return st, facts
+    return st, facts, dict(stats=stats, w1_stats=w1_stats,
+                           w1_voxels=_touched(w1))
 
 
 def _wide_keys(dev, smi):
@@ -2134,9 +2169,10 @@ def _hash_stream_and_node(dev, smi, hash_state):
 def phase_hash_and_wide(dev, smi, main_voxels, main_stats, brick_cli_voxels):
     """Phase 7: the hash backend and the wide key path.  Returns ({path: K1
     launches}, measured numbers, 7a's voxels and 7b's brick voxels, sorted
-    by key)."""
+    by key, and 7a's runs for phase 10)."""
     t0 = time.perf_counter()
-    hash_state, main = _hash_main(dev, smi, main_voxels, main_stats)
+    hash_state, main, hash_runs = _hash_main(dev, smi, main_voxels,
+                                             main_stats)
     wide_launches, wide, wide_voxels = _wide_keys(dev, smi)
     entry = _hash_entry_points(dev, smi, hash_state, brick_cli_voxels)
     stream = _hash_stream_and_node(dev, smi, hash_state)
@@ -2144,7 +2180,7 @@ def phase_hash_and_wide(dev, smi, main_voxels, main_stats, brick_cli_voxels):
           f"[{smi}]", flush=True)
     return {"map_ping_sequence (wide keys)": wide_launches}, dict(
         hash=main, wide_keys=wide, hash_entry_points=entry,
-        hash_stream=stream), _touched(hash_state), wide_voxels
+        hash_stream=stream), _touched(hash_state), wide_voxels, hash_runs
 
 
 DENSE_F64_PINGS = 8   # phase 8b: float64 pings, card vs CPU
@@ -2855,6 +2891,387 @@ def phase_sharded(dev, smi, main_voxels, main_stats, wide_voxels,
         sharded_stream=stream, sharded_float64=f64)
 
 
+# phase 10: the replicated-records engines (the sharded hash engine and the
+# replicated-records sharded brick engine) on one card, their mesh the card
+# repeated SHARDED_S times.  Each shard computes every frame's candidates,
+# so on one card the records half runs SHARDED_S times.  Nothing was cut
+# for time: 10a / 10c map phase 2's whole survey.
+
+
+@contextlib.contextmanager
+def probe_replicated():
+    """While open, the replicated-records engines' applies are timed and
+    their growth calls counted, in the dict it yields: ``apply_s`` (every
+    shard's apply, a sync before and after; the records before it end in a
+    sync already, and the stats after it in one) and ``rehashes`` (each
+    call grows every shard, with replay)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.parallel import shard, shard_brick
+
+    probe = dict(apply_s=0.0, rehashes=0)
+    names = [(shard, "_apply_ping"), (shard, "apply_records_batched"),
+             (shard_brick, "apply_brick_records_wide"),
+             (shard, "rehash_sharded"), (shard_brick, "rehash_sharded_bricks")]
+    saved = {(m, n): getattr(m, n) for m, n in names}
+
+    def timed(fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            probe["apply_s"] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def counted(fn):
+        def wrapped(*args, **kw):
+            probe["rehashes"] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for (m, n), fn in saved.items():
+        setattr(m, n, counted(fn) if n.startswith("rehash") else timed(fn))
+    try:
+        yield probe
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+
+
+def _check_owners(state, what):
+    """Every shard's touched voxels are ones it owns (hash: voxel codes,
+    brick: brick codes); returns the voxels per shard."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.grid.hash import touched_voxels_hash
+    from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+        pack_brick_keys,
+        pack_keys,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+        ShardedHashState,
+        owner_shard,
+        owner_shard_brick,
+    )
+
+    per = []
+    for s, sub in enumerate(state.shards):
+        dev = sub.log_odds.device
+        if isinstance(state, ShardedHashState):
+            keys, _ = touched_voxels_hash(sub)
+            hi, lo, _ = pack_keys(torch.as_tensor(keys, device=dev))
+            owner = owner_shard(hi, lo, state.n_shards)
+        else:
+            keys, _ = touched_voxels_brick(sub)
+            hi, lo, _ = pack_brick_keys(torch.as_tensor(keys, device=dev), 2)
+            owner = owner_shard_brick(hi, lo, 2, state.n_shards)
+        if not bool((owner == s).all()):
+            raise AssertionError(f"{what}: shard {s} holds "
+                                 f"{int((owner != s).sum())} voxels it does "
+                                 f"not own")
+        per.append(len(keys))
+    return per
+
+
+def _replicated_hash(dev, smi, hash_voxels, hash_runs):
+    """10a: phase 2's survey through parallel.map_ping_sequence_sharded at
+    window 16 on (card,) * SHARDED_S, and its first HASH_W1_PINGS pings
+    at window 1: per-ping stats, voxels and log-odds equal 7a's runs of
+    the same pings; every voxel on its owner shard.  10b: save_map of the
+    map -> load_map, against 7a's snapshot (phase 7c's file).  Returns
+    facts."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
+        load_map,
+        save_map,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, 256)
+    mesh = (dev,) * SHARDED_S
+
+    def run(n, window):
+        return map_ping_sequence_sharded(
+            images[:n], positions[:n], quats[:n], cfg, mesh=mesh,
+            window=window, dtype=torch.float32)
+
+    what = f"sharded hash (S={SHARDED_S}), window 16"
+    torch.cuda.reset_peak_memory_stats(dev)
+    with probe_replicated() as probe:
+        (st, stats), wall = _wall(lambda: run(256, 16))
+    peak = torch.cuda.max_memory_allocated(dev)
+    _same_stats(stats, hash_runs["stats"], f"{what} vs 7a")
+    voxels = _same_voxels(_touched(st), hash_voxels, 0.0, f"{what} vs 7a")[0]
+    per_shard = _check_owners(st, what)
+    w1_what = f"sharded hash (S={SHARDED_S}), window 1"
+    with probe_replicated() as w1_probe:
+        (w1, w1_stats), w1_s = _wall(lambda: run(HASH_W1_PINGS, 1))
+    _same_stats(w1_stats, hash_runs["w1_stats"], f"{w1_what} vs 7a")
+    w1_voxels = _same_voxels(_touched(w1), hash_runs["w1_voxels"], 0.0,
+                             f"{w1_what} vs 7a")[0]
+    _check_owners(w1, w1_what)
+    rest = wall - probe["apply_s"]
+    print(
+        f"phase 10a sharded hash, S={SHARDED_S} on {dev} x {SHARDED_S}: 256 "
+        f"pings of 500x512, window 16, float32, through "
+        f"map_ping_sequence_sharded: per-ping stats and {voxels} voxels "
+        f"equal 7a's map, log-odds bit-equal; voxels per shard {per_shard} "
+        f"(each on its owner); wall {wall:.3f} s, {256 / wall:.1f} pings/s, "
+        f"peak memory {peak / 2**20:.1f} MiB, {probe['rehashes']} rehash "
+        f"calls ({st.local_capacity} slots a shard); applies "
+        f"{probe['apply_s']:.3f} s, the rest (records of every frame on each "
+        f"of the {SHARDED_S} shards, commit) {rest:.3f} s = "
+        f"{rest / wall:.1%} of the wall.  Window 1 over {HASH_W1_PINGS} "
+        f"pings: {w1_s:.3f} s, {HASH_W1_PINGS / w1_s:.1f} pings/s, "
+        f"{w1_voxels} voxels and stats equal 7a's window-1 run, applies "
+        f"{w1_probe['apply_s']:.3f} s [{smi}]",
+        flush=True,
+    )
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    path = os.path.join(work, "sharded_hash.npz")
+    _, save_s = _wall(lambda: save_map(path, st, cfg))
+    snaps = []
+    for f in (path, os.path.join(work, "hash.npz")):
+        with np.load(f) as z:
+            snaps.append((_by_key((z["keys"], z["log_odds"])),
+                          z["min_bounds"], z["max_bounds"]))
+    _same_voxels(snaps[0][0], snaps[1][0], 0.0,
+                 "sharded hash snapshot vs 7a's snapshot")
+    if not all(np.array_equal(a, b) for a, b in zip(snaps[0][1:],
+                                                     snaps[1][1:])):
+        raise AssertionError("the sharded hash snapshot's bounds differ "
+                             "from 7a's")
+    (loaded, _), load_s = _wall(lambda: load_map(path, device=dev))
+    _same_voxels(_touched(loaded), hash_voxels, 0.0,
+                 "load_map of the sharded hash snapshot vs 7a")
+    print(
+        f"phase 10b sharded hash snapshot: save_map {save_s:.3f} s; its "
+        f"{voxels} voxels, log-odds and bounds equal 7a's snapshot (phase "
+        f"7c); load_map on the card {load_s:.3f} s, bit-equal [{smi}]",
+        flush=True,
+    )
+    return dict(wall_s=wall, pings_per_sec=256 / wall, peak_mib=peak / 2**20,
+                rehash_calls=probe["rehashes"],
+                local_capacity=st.local_capacity, voxels_per_shard=per_shard,
+                apply_s=probe["apply_s"], records_and_commit_s=rest,
+                window1_s=w1_s, window1_pings_per_sec=HASH_W1_PINGS / w1_s,
+                window1_apply_s=w1_probe["apply_s"], save_map_s=save_s,
+                load_map_s=load_s)
+
+
+def _replicated_brick(dev, smi, main_voxels, main_stats):
+    """10c: phase 2's survey through parallel.map_ping_sequence_sharded_
+    brick (window 16) on (card,) * SHARDED_S: per-ping stats, voxels and
+    log-odds equal phase 2's; K1 against its plain version on the widest
+    shard window.  Returns (K1 launches, facts)."""
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded_brick,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, 256)
+    what = f"map_ping_sequence_sharded_brick (S={SHARDED_S})"
+    torch.cuda.reset_peak_memory_stats(dev)
+    with keep_widest_k1_call(raw=False) as kept, probe_replicated() as probe:
+        ((st, stats), launches), wall = _wall(lambda: _k1_launches_of(
+            lambda: map_ping_sequence_sharded_brick(
+                images, positions, quats, cfg, mesh=(dev,) * SHARDED_S,
+                window=16, dtype=torch.float32), what=what))
+    peak = torch.cuda.max_memory_allocated(dev)
+    _same_stats(stats, main_stats, f"{what} vs phase 2")
+    voxels = _same_voxels(_touched(st), _by_key(main_voxels), 0.0,
+                          f"{what} vs phase 2")[0]
+    per_shard = _check_owners(st, what)
+    kw = dict(B=16, vol=64, f_bits=4, o=6, cfg=cfg)
+    args = kept["args"]
+    for dtype in (torch.float32, torch.float64):
+        a = args[:3] + (args[3].to(dtype),)
+        got, want = k1.bin_apply(*a, **kw), k1.bin_apply_reference(*a, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"bin_apply != plain on the widest "
+                                 f"replicated shard window ({dtype})")
+    k1_ms = _device_ms(lambda: k1.bin_apply(*args, **kw), "bin_apply_kernel")
+    bound_ms = _bound_ms(k1_bytes(args, False, 16)[0])
+    nb, lanes = args[3].shape[0], args[0].shape[0]
+    rest = wall - probe["apply_s"]
+    print(
+        f"phase 10c {what} on {dev} x {SHARDED_S}: 256 pings of 500x512, "
+        f"window 16, float32, two-word brick codes: per-ping stats and "
+        f"{voxels} voxels equal phase 2's map, log-odds bit-equal; voxels "
+        f"per shard {per_shard}; wall {wall:.3f} s, {256 / wall:.1f} "
+        f"pings/s, peak memory {peak / 2**20:.1f} MiB, {launches} bin_apply "
+        f"launches, {probe['rehashes']} rehash calls ({st.local_capacity} "
+        f"bricks a shard); applies {probe['apply_s']:.3f} s, the rest "
+        f"(records of every frame on each of the {SHARDED_S} shards, commit) "
+        f"{rest:.3f} s = {rest / wall:.1%} of the wall; bin_apply == plain "
+        f"in float32 and float64 on the widest shard window (NB={nb}, "
+        f"L={lanes}), {k1_ms:.4f} ms device time, bound {bound_ms:.4f} ms "
+        f"({bound_ms / k1_ms:.1%} of it) [{smi}]",
+        flush=True,
+    )
+    return launches, dict(
+        wall_s=wall, pings_per_sec=256 / wall, peak_mib=peak / 2**20,
+        k1_launches=launches, rehash_calls=probe["rehashes"],
+        local_capacity=st.local_capacity, voxels_per_shard=per_shard,
+        apply_s=probe["apply_s"], records_and_commit_s=rest,
+        k1_widest_ms=k1_ms, k1_widest_bound_ms=bound_ms, k1_widest_nb=nb,
+        k1_widest_lanes=lanes)
+
+
+def _replicated_float64(dev, smi):
+    """10d: F64_PINGS pings in float64 through both replicated-records
+    engines at SHARDED_S shards, window 8, on the card and the CPU:
+    per-ping stats and every array of every shard bit-equal.  Returns
+    facts."""
+    import numpy as np
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded,
+        map_ping_sequence_sharded_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+        sharded_hash_state_to_numpy,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        sharded_brick_state_to_numpy,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, F64_PINGS)
+    facts = {}
+    for name, engine, to_numpy in (
+            ("hash", map_ping_sequence_sharded, sharded_hash_state_to_numpy),
+            ("brick", map_ping_sequence_sharded_brick,
+             sharded_brick_state_to_numpy)):
+        out = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            (st, stats), secs = _wall(lambda: engine(
+                images, positions, quats, cfg, mesh=(device,) * SHARDED_S,
+                window=8, dtype=torch.float64))
+            out[where] = (stats, to_numpy(st), secs)
+        (g_stats, g, g_s), (c_stats, c, c_s) = out["card"], out["cpu"]
+        what = f"replicated {name} float64, card vs CPU"
+        _same_stats(g_stats, c_stats, what, keys=list(g_stats))
+        for k in g:
+            if g[k].shape != c[k].shape or not np.array_equal(g[k], c[k]):
+                n = (g[k] != c[k]).sum() if g[k].shape == c[k].shape else -1
+                print(f"{what}: shard arrays {k} differ ({n} entries)",
+                      flush=True)
+                raise AssertionError(f"{what}: shard arrays {k} differ")
+        facts[name] = dict(voxels=int(g["used"].sum()),
+                           per_shard=g["used"].tolist(), card_s=g_s,
+                           cpu_s=c_s)
+    print(
+        f"phase 10d replicated float64: {F64_PINGS} pings of 500x512, window "
+        f"8, {SHARDED_S} shards, card vs CPU, per-ping stats and every array "
+        f"of every shard bit-equal: sharded hash ({facts['hash']['voxels']} "
+        f"voxels, per shard {facts['hash']['per_shard']}; card "
+        f"{facts['hash']['card_s']:.3f} s, CPU {facts['hash']['cpu_s']:.3f} "
+        f"s) and replicated brick ({facts['brick']['voxels']} voxels; card "
+        f"{facts['brick']['card_s']:.3f} s, CPU {facts['brick']['cpu_s']:.3f}"
+        f" s) [{smi}]",
+        flush=True,
+    )
+    return facts
+
+
+def _trace_kernels(path):
+    """The CUDA kernel events of a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def _replicated_trace(dev, smi):
+    """10e: utils.profiling.device_trace around one sharded hash window
+    (16 pings, window 16) on (card,) * SHARDED_S: the trace file exists
+    and names CUDA kernels (the profiler is asked again when a trace holds
+    none, PROFILE_TRIES times); their summed time against the traced
+    call's wall.  Returns facts."""
+    import glob
+    import shutil
+
+    import torch
+
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded,
+    )
+    from sonar_3d_reconstruction_tpu_torch.utils import device_trace
+
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, 16)
+    log_dir = os.path.join(ROOT, "build", "chip_smoke", "trace")
+    for attempt in range(1, PROFILE_TRIES + 1):
+        shutil.rmtree(log_dir, ignore_errors=True)
+        with device_trace(log_dir):
+            _, traced_s = _wall(lambda: map_ping_sequence_sharded(
+                images, positions, quats, cfg, mesh=(dev,) * SHARDED_S,
+                local_capacity=1 << 20, window=16, dtype=torch.float32))
+        paths = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        if len(paths) != 1:
+            raise AssertionError(f"device_trace wrote {paths}")
+        kernels = _trace_kernels(paths[0])
+        if kernels:
+            break
+    else:
+        raise AssertionError(f"device_trace recorded no CUDA kernel in "
+                             f"{PROFILE_TRIES} runs")
+    names = {e["name"] for e in kernels}
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    size = os.path.getsize(paths[0])
+    print(
+        f"phase 10e device_trace around one sharded hash window (16 pings, "
+        f"S={SHARDED_S}): {os.path.relpath(paths[0], ROOT)}, {size} bytes, "
+        f"{len(kernels)} CUDA kernel events of {len(names)} kernels, "
+        f"{busy_ms:.3f} ms of kernel time = {busy_ms / 1e3 / traced_s:.1%} "
+        f"of the traced call's wall {traced_s:.3f} s (under the profiler), "
+        f"attempt {attempt} [{smi}]",
+        flush=True,
+    )
+    return dict(trace_bytes=size, kernel_events=len(kernels),
+                kernel_names=len(names), kernel_ms=busy_ms,
+                traced_wall_s=traced_s, attempts=attempt)
+
+
+def phase_replicated(dev, smi, main_voxels, main_stats, hash_voxels,
+                     hash_runs):
+    """Phase 10: the replicated-records engines on one card.  Returns
+    ({path: K1 launches}, measured numbers)."""
+    t0 = time.perf_counter()
+    hash_facts = _replicated_hash(dev, smi, hash_voxels, hash_runs)
+    launches, brick = _replicated_brick(dev, smi, main_voxels, main_stats)
+    f64 = _replicated_float64(dev, smi)
+    trace = _replicated_trace(dev, smi)
+    print(f"phase 10 replicated-records engines: "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    return ({f"map_ping_sequence_sharded_brick (S={SHARDED_S})": launches},
+            dict(sharded_hash=hash_facts, replicated_brick=brick,
+                 replicated_float64=f64, sharded_trace=trace))
+
+
 def main() -> int:
     import torch
 
@@ -2883,15 +3300,18 @@ def main() -> int:
     stream_launches, stream = phase_stream(
         dev, smi, main_voxels, entry["process_sonar_image_ms"],
         entry["cli_map_bag"]["num_voxels"])
-    wide_launches, hash_wide, hash_voxels, wide_voxels = phase_hash_and_wide(
+    (wide_launches, hash_wide, hash_voxels, wide_voxels,
+     hash_runs) = phase_hash_and_wide(
         dev, smi, main_voxels, main_stats, entry["cli_map_bag"]["num_voxels"])
     late_launches, dense_fold = phase_dense_and_multihost(
         dev, smi, main_voxels, main_stats, hash_voxels)
-    del hash_voxels
     sharded_launches, sharded = phase_sharded(
         dev, smi, main_voxels, main_stats, wide_voxels,
         entry["cli_map_bag"]["num_voxels"])
     del wide_voxels
+    replicated_launches, replicated = phase_replicated(
+        dev, smi, main_voxels, main_stats, hash_voxels, hash_runs)
+    del hash_voxels, hash_runs
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -2901,9 +3321,9 @@ def main() -> int:
         ("bin_apply", bin_src, bin_tpu, k1_launches,
          dict(main=k1_launches, **entry_launches,
               **stream_launches["bin_apply"], **wide_launches,
-              **late_launches, **sharded_launches),
+              **late_launches, **sharded_launches, **replicated_launches),
          dict(k1, entry_points=entry, stream=stream, **hash_wide,
-              **dense_fold, **sharded)),
+              **dense_fold, **sharded, **replicated)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
           **stream_launches["bin_apply_raw"]}, k1_raw),

@@ -53,6 +53,8 @@ from sonar_3d_reconstruction_tpu_torch.ops.packing import (
 
 # Slots per bucket (one row gather resolves a whole bucket).
 BUCKET_SLOTS = 128
+# An empty slot's unpacked key (the sharded map's ``keys`` view).
+EMPTY = 0x7FFFFFFF
 
 
 def empty_key_rows(capacity: int, device) -> torch.Tensor:

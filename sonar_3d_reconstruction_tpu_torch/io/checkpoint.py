@@ -1,15 +1,17 @@
 """Map snapshot / restore (PyTorch port of
-``sonar_3d_reconstruction_tpu.io.checkpoint`` for brick, sharded brick and
-hash maps).
+``sonar_3d_reconstruction_tpu.io.checkpoint`` for brick, sharded brick,
+hash and sharded hash maps).
 
 A snapshot is one ``.npz`` in the JAX package's ``sonar3d-map-v1`` format:
 the touched voxels as UNPACKED (N, 3) int32 keys with their log-odds in
 the map's dtype (a float64 map stays float64), the bounds, and the config
 as JSON.  The format does not depend on the table layout, so a snapshot
 saved by either package, from either backend, loads into the other, into
-a brick grid (``load_map_brick``) or a hash grid (``load_map``).  A dense
-map has no snapshot, as in the JAX package.  The sharded loaders wait for
-multi-GPU (ROADMAP item 18).
+a brick grid (``load_map_brick``), a sharded brick grid
+(``load_map_sharded_brick``) or a hash grid (``load_map``).  A sharded hash
+map saves its shards' voxels together and restores through any of them,
+as in the JAX package, which has no sharded hash loader either.  A dense
+map has no snapshot, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +36,11 @@ from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     touched_voxels_hash,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.packing import pack_brick_keys
-from sonar_3d_reconstruction_tpu_torch.parallel.shard import make_mesh
+from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+    ShardedHashState,
+    make_mesh,
+    touched_voxels_sharded,
+)
 from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
     ShardedBrickState,
     gather_sharded_brick_state,
@@ -46,19 +52,22 @@ _FORMAT = "sonar3d-map-v1"
 
 def save_map(
     path: str,
-    state: Union[BrickGridState, ShardedBrickState, HashGridState],
+    state: Union[BrickGridState, ShardedBrickState, HashGridState,
+                 ShardedHashState],
     cfg: MapperConfig,
 ) -> None:
-    """Snapshot a brick, sharded brick or hash map's touched voxels, bounds
-    and config to ``path``; ValueError for any other map."""
+    """Snapshot a brick, sharded brick, hash or sharded hash map's touched
+    voxels, bounds and config to ``path``; ValueError for any other map.
+    Shards hold disjoint voxels, so a sharded map's are concatenated."""
     touched = {BrickGridState: touched_voxels_brick,
                ShardedBrickState: gather_sharded_brick_state,
-               HashGridState: touched_voxels_hash}.get(type(state))
+               HashGridState: touched_voxels_hash,
+               ShardedHashState: touched_voxels_sharded}.get(type(state))
     if touched is None:
         raise ValueError(
-            f"save_map takes a brick, sharded brick or hash map, not "
-            f"{type(state).__name__} (the dense backend has no snapshot, as "
-            f"in the JAX package)"
+            f"save_map takes a brick, sharded brick, hash or sharded hash "
+            f"map, not {type(state).__name__} (the dense backend has no "
+            f"snapshot, as in the JAX package)"
         )
     keys, log_odds = touched(state)
     np.savez_compressed(

@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -249,6 +249,23 @@ def resolve_capped_tables(
         window_cap=required_window_cap(images, cfg, range_bins),
         free_cap=required_free_cap(images, cfg, range_bins),
     )
+
+
+def tables_for_images(
+    images: np.ndarray, cfg: MapperConfig, tables: Optional[FanTables] = None
+) -> FanTables:
+    """The fan tables of a (P, range_bins, bearing_bins) image stack: the
+    caller's ``tables`` (ValueError when they are for another image
+    shape), else tables with every cap sized for these images."""
+    _, R, B = images.shape
+    if tables is None:
+        return resolve_capped_tables(images, cfg, R, B)
+    if (tables.range_bins, tables.bearing_bins) != (R, B):
+        raise ValueError(
+            f"fan tables are for {tables.range_bins}x{tables.bearing_bins} "
+            f"images, not {R}x{B}"
+        )
+    return tables
 
 
 @functools.lru_cache(maxsize=16)

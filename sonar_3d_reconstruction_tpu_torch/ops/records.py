@@ -9,7 +9,7 @@ entirely in the window apply.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -129,3 +129,20 @@ def frame_aux(
         range_fail=range_fail,
         n_valid=n_valid,
     )
+
+
+def stack_frame_records(
+    outs: List[Tuple[Union[CompactRecords, UniqueRecords], FrameAux]],
+    cut: bool = True,
+) -> Tuple[Union[CompactRecords, UniqueRecords], FrameAux]:
+    """A window's per-frame (records, FrameAux), stacked along a leading
+    frame axis.  With ``cut``, unique records (a prefix of their lanes)
+    are cut to the widest frame's unique count (one sync); raw candidates
+    sit wherever the candidate lattice put them and are stacked uncut."""
+    kind = type(outs[0][0])
+    recs = kind(*(torch.stack(x) for x in zip(*(r for r, _ in outs))))
+    auxs = FrameAux(*(torch.stack(x) for x in zip(*(a for _, a in outs))))
+    if not cut:
+        return recs, auxs
+    width = max(1, int(recs.n_unique.max()))
+    return kind(*(x[:, :width] if x.dim() == 2 else x for x in recs)), auxs

@@ -1,28 +1,34 @@
-"""The sharded brick map's state, ownership, growth and reads (PyTorch port
-of the state layer of ``sonar_3d_reconstruction_tpu.parallel.shard_brick``).
+"""The sharded brick map: its state, ownership, growth and reads, and the
+replicated-records engine (PyTorch port of
+``sonar_3d_reconstruction_tpu.parallel.shard_brick``).
 
 The brick table splits into S independent sub-tables, shard ``s`` on
 ``mesh[s]`` (parallel/shard.py; a device may repeat).  A voxel's owner is
-a hash of its BRICK code mod S, so whole bricks stay on one shard: a
-window's in-brick chain runs locally on the owner and the map equals the
-single-card brick map voxel for voxel.  Shards hold disjoint bricks, so
-every read distributes exactly: run it per shard and concatenate (point
-log-odds: sum, since absent shards answer 0.0).
+a hash of its BRICK code mod S (``owner_shard_brick``), so whole bricks
+stay on one shard: a window's in-brick chain runs locally on the owner and
+the map equals the single-card brick map voxel for voxel.  Shards hold
+disjoint bricks, so every read distributes exactly: run it per shard and
+concatenate (point log-odds: sum, since absent shards answer 0.0).
 
 All shards keep one ``local_capacity`` and grow together.  The bounds are
 global and replicated (every shard applies every frame's bounds); ``used``
 and ``poisoned`` are per shard.
 
-Not ported: the JAX module's replicated-records engine
-(``make_window_scan_sharded_brick`` / ``map_ping_sequence_sharded_brick``),
-which recomputes every frame's records on every shard and so scales only
-the apply half.  The frame-parallel engine (parallel/shard_frames.py) that
-every user surface drives shards both halves and uses this layer.
+Two engines write this map.  The frame-parallel engine
+(parallel/shard_frames.py), which every user surface drives, computes
+each frame's records once and moves them to their owners.  The
+replicated-records engine here (``map_ping_sequence_sharded_brick``) is
+the sharded hash engine's design on bricks (parallel/shard.py): every
+shard computes every frame's records, keeps the bricks it owns, and
+applies its window with ``grid.brick.apply_brick_records_wide``, through
+the binning kernel K1 (the JAX engine applies with XLA there).  Only its
+apply half scales with the shards.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,7 @@ from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
 from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     DEFAULT_BRICK_BITS,
     BrickGridState,
+    apply_brick_records_wide,
     brick_state_to_numpy,
     extract_classified_brick,
     extract_occupied_brick,
@@ -39,9 +46,29 @@ from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     rehash_bricks,
     touched_voxels_brick,
 )
-from sonar_3d_reconstruction_tpu_torch.ops.packing import U32, brick_layout, mix2
-from sonar_3d_reconstruction_tpu_torch.parallel.shard import Mesh, make_mesh
-from sonar_3d_reconstruction_tpu_torch.pipeline import MAX_GROW_RETRIES
+from sonar_3d_reconstruction_tpu_torch.ops.backproject import FanTables
+from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+    Mesh,
+    check_sharded_state,
+    grow_shards,
+    make_mesh,
+    on_mesh,
+    replicated_step,
+    run_grow_replay,
+    scan_windows,
+    sequence_inputs,
+)
+# where the JAX package defines it (parallel/shard.py holds both owners)
+from sonar_3d_reconstruction_tpu_torch.parallel.shard import (  # noqa: F401
+    owner_shard_brick,
+)
+from sonar_3d_reconstruction_tpu_torch.pipeline import STAT_DTYPES
+
+# per-ping stats of the replicated-records engine: the brick backend's
+# (``num_occupied`` / ``num_free`` / ``num_candidates`` and the window
+# sizes summed over the shards) and the window sizes' largest shard
+REPLICATED_STAT_DTYPES = dict(
+    STAT_DTYPES, batch_n_bricks_max=np.int64, batch_n_lanes_max=np.int64)
 
 
 class ShardedBrickState(NamedTuple):
@@ -115,18 +142,6 @@ def init_sharded_brick_grid(
     ))
 
 
-def owner_shard_brick(
-    hi: torch.Tensor, lo: torch.Tensor, brick_bits: int, n_shards: int
-) -> torch.Tensor:
-    """Brick-major codes (ops/packing.pack_brick_keys) -> int64 owner shard
-    of their BRICK: the offset and frame bits are masked, so every voxel of
-    a brick lands on one shard.  ``mix2(brick_lo, hi) % S``, bit-equal to
-    the JAX package's, which snapshots and the parity tests rely on."""
-    _, o, _ = brick_layout(brick_bits)
-    brick_lo = lo & (U32 ^ ((1 << (o + 4)) - 1))
-    return mix2(brick_lo, hi) % n_shards
-
-
 def rehash_sharded_bricks(
     state: ShardedBrickState, new_local_capacity: int
 ) -> ShardedBrickState:
@@ -135,12 +150,7 @@ def rehash_sharded_bricks(
     shard whose buckets do not fit doubles further, and then every shard
     takes that capacity.  Ownership depends only on the brick code, so no
     entry changes shard."""
-    grown = [rehash_bricks(s, new_local_capacity) for s in state.shards]
-    cap = max(g.capacity for g in grown)
-    return ShardedBrickState(tuple(
-        g if g.capacity == cap else rehash_bricks(s, cap)
-        for g, s in zip(grown, state.shards)
-    ))
+    return grow_shards(state, new_local_capacity, rehash_bricks)
 
 
 def local_brick_states(state: ShardedBrickState) -> List[BrickGridState]:
@@ -221,48 +231,67 @@ def sharded_brick_state_to_numpy(state: ShardedBrickState) -> Dict[str, np.ndarr
     return {k: np.stack([p[k] for p in per]) for k in per[0]}
 
 
-def run_grow_replay(
-    *,
-    state: ShardedBrickState,
-    n_frames: int,
-    scan: Callable[[ShardedBrickState, int],
-                   Tuple[ShardedBrickState, Dict[str, np.ndarray]]],
-    label: str,
-) -> Tuple[ShardedBrickState, Dict[str, np.ndarray]]:
-    """The sharded engines' host loop: ``scan(state, start)`` maps frames
-    [start, n_frames) and returns (state, per-frame host stats, frames
-    from its first failed window on reporting ``overflowed``).  The stats
-    of the applied frames are merged; on a failed window a key-range
-    failure or a count-packing overflow is fatal (ValueError), anything
-    else is bucket pressure: every shard doubles
-    (``rehash_sharded_bricks``) and the scan replays from that window.
+# ---------------------------------------------------------------------------
+# The replicated-records engine
+# ---------------------------------------------------------------------------
 
-    The JAX loop's budget causes (unique, exchange, insert, batch) have no
-    counterpart: the port sizes every window from its counts."""
-    merged: Optional[Dict[str, np.ndarray]] = None
-    start = 0
-    for _ in range(MAX_GROW_RETRIES):
-        new_state, stats = scan(state, start)
-        if merged is None:
-            merged = {k: np.zeros(n_frames, v.dtype) for k, v in stats.items()}
-        over = stats["overflowed"]
-        applied_hi = int(np.argmax(over)) if over.any() else n_frames
-        for k, v in stats.items():
-            merged[k][start:applied_hi] = v[start:applied_hi]
-        if applied_hi == n_frames:
-            return new_state, merged
-        start = applied_hi
-        if stats["range_fail"][start:].any():
-            raise ValueError(
-                f"frame >= {start}: voxel keys outside the packable range "
-                "— check odometry frame offsets; growth cannot fix this"
-            )
-        if stats["pack_overflow"][start:].any():
-            raise ValueError(
-                f"frame >= {start}: a voxel received 2^16+ emissions in one "
-                "frame (count packing width)"
-            )
-        state = rehash_sharded_bricks(new_state, new_state.local_capacity * 2)
-    raise RuntimeError(
-        f"{label} growth did not converge after {MAX_GROW_RETRIES} retries"
+
+def _brick_step(state, images, transforms, tables, cfg, dtype):
+    """The replicated-records engine's ``step(state, frames)`` (the JAX
+    package's ``make_window_scan_sharded_brick``): each shard applies its
+    records of a window's frames (two-word brick codes) with one
+    ``apply_brick_records_wide`` (K1), and the window commits on every
+    shard or on none."""
+    return functools.partial(
+        replicated_step, apply=apply_brick_records_wide,
+        brick_bits=state.brick_bits, stat_dtypes=REPLICATED_STAT_DTYPES,
+        sizes=("batch_n_bricks", "batch_n_lanes"),
+        images_dev=on_mesh(images, state.mesh),
+        T_dev=on_mesh(transforms, state.mesh, dtype),
+        tables=tables, cfg=cfg, dtype=dtype,
     )
+
+
+def map_ping_sequence_sharded_brick(
+    images: np.ndarray,
+    positions: np.ndarray,
+    quaternions: np.ndarray,
+    cfg: Optional[MapperConfig] = None,
+    *,
+    mesh=None,
+    local_capacity: int = 1 << 14,
+    state: Optional[ShardedBrickState] = None,
+    dtype: torch.dtype = torch.float32,
+    window: int = 8,
+    tables: Optional[FanTables] = None,
+) -> Tuple[ShardedBrickState, Dict[str, np.ndarray]]:
+    """Map a recorded ping sequence into a sharded brick map with the
+    replicated-records engine.
+
+    ``mesh``, ``state``, ``dtype`` and ``tables`` are as in
+    ``parallel.shard_frames.map_ping_sequence_sharded_frames``; a fresh
+    map holds ``local_capacity`` bricks a shard.  Every window takes
+    two-word brick codes.  Returns (state, per-ping stats (P,) on the
+    host: REPLICATED_STAT_DTYPES).  The map equals
+    ``pipeline.map_ping_sequence(backend="brick")``'s voxel by voxel, each
+    shard holding exactly the bricks it owns.  A window that would
+    overflow a bucket on any shard grows every shard and replays; keys
+    outside the packable range and voxels with 2^16+ emissions in one
+    frame are fatal (ValueError)."""
+    cfg = cfg or MapperConfig()
+    state = (init_sharded_brick_grid(mesh, local_capacity, dtype)
+             if state is None else check_sharded_state(state, mesh, dtype))
+    images, tables, T = sequence_inputs(images, positions, quaternions, cfg,
+                                        tables)
+    P = len(images)
+    if P == 0:
+        return state, {k: np.zeros(0, dt)
+                       for k, dt in REPLICATED_STAT_DTYPES.items()}
+    window = min(max(window, 1), P)
+    scan = functools.partial(
+        scan_windows, n_frames=P, window=window,
+        step=_brick_step(state, images, T, tables, cfg, dtype),
+        stat_dtypes=REPLICATED_STAT_DTYPES)
+    return run_grow_replay(state=state, n_frames=P, scan=scan,
+                           rehash=rehash_sharded_bricks,
+                           label="sharded brick")

@@ -19,7 +19,7 @@ Both halves of the map update scale with the mesh:
     binning kernel K1) on its own records for all of the window's frames;
   * commit: a window is all-or-nothing across shards.  If any shard's
     apply fails, no shard takes its result; the tables double and the
-    window replays (parallel/shard_brick.run_grow_replay).
+    window replays (parallel/shard.run_grow_replay).
 
 The JAX engine is single-controller (one process drives the mesh over
 ICI collectives); so is this one: the ``all_to_all`` becomes the
@@ -45,8 +45,6 @@ import numpy as np
 import torch
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
-from sonar_3d_reconstruction_tpu_torch.device import to_device
-from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
 from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     apply_brick_records_compact,
     apply_brick_records_wide,
@@ -55,7 +53,6 @@ from sonar_3d_reconstruction_tpu_torch.grid.brick import (
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     FanTables,
     backproject_ping,
-    resolve_capped_tables,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
     CompactRecords,
@@ -74,27 +71,31 @@ from sonar_3d_reconstruction_tpu_torch.ops.packing import (
     pack_brick_keys,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.records import FrameAux, frame_aux
-from sonar_3d_reconstruction_tpu_torch.parallel.shard import make_mesh
+from sonar_3d_reconstruction_tpu_torch.parallel import shard_brick
+from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+    check_sharded_state,
+    commit,
+    host_stats,
+    on_mesh,
+    owner_shard_brick,
+    poison,
+    run_grow_replay,
+    scan_windows,
+    sequence_inputs,
+)
 from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+    REPLICATED_STAT_DTYPES,
     ShardedBrickState,
     init_sharded_brick_grid,
-    owner_shard_brick,
-    run_grow_replay,
 )
-from sonar_3d_reconstruction_tpu_torch.pipeline import STAT_DTYPES
 
-# per-ping stats: the brick backend's (``num_occupied`` / ``num_free``
-# summed over the owners, ``num_candidates`` from the source shard, the
-# window sizes summed), the window sizes' largest shard, and the exchange:
-# the largest block a frame sent to one owner and the bytes of its records
-# moved to their owners (16 a record)
+# per-ping stats: the replicated-records engine's (``num_occupied`` /
+# ``num_free`` summed over the owners, ``num_candidates`` from the source
+# shard, the window sizes summed and their largest shard), and the
+# exchange: the largest block a frame sent to one owner and the bytes of
+# its records moved to their owners (16 a record)
 SHARDED_STAT_DTYPES = dict(
-    STAT_DTYPES,
-    batch_n_bricks_max=np.int64,
-    batch_n_lanes_max=np.int64,
-    xchg_n_max=np.int64,
-    xchg_bytes=np.int64,
-)
+    REPLICATED_STAT_DTYPES, xchg_n_max=np.int64, xchg_bytes=np.int64)
 _RECORD_BYTES = 16  # two int64 words a record, in either key layout
 DEFAULT_LOCAL_CAPACITY = 1 << 14  # bricks a shard of a fresh map, as in JAX
 
@@ -190,12 +191,6 @@ def _owner_records(outs, counts, starts, d, device, compact, pack_fail):
     )
 
 
-def _poisoned(state: ShardedBrickState) -> ShardedBrickState:
-    return ShardedBrickState(tuple(
-        s._replace(poisoned=torch.ones_like(s.poisoned)) for s in state.shards
-    ))
-
-
 def _window(
     state: ShardedBrickState,
     frames: range,
@@ -249,7 +244,7 @@ def _window(
     if range_fail.any() or pack_fail.any():
         # fatal at the source: no shard applies anything
         stats["overflowed"][:] = True
-        return _poisoned(state), stats
+        return poison(state), stats
 
     aux_on = {
         d: FrameAux(*(torch.stack([x.to(d) for x in field])
@@ -266,23 +261,14 @@ def _window(
                 dense_mode=dense_mode)
         else:
             new, win = apply_brick_records_wide(shard, recs, aux_on[dev], cfg)
-        results.append((new, {k: v.cpu().numpy() for k, v in win.items()}))
+        results.append((new, host_stats(win)))
 
-    wins = [w for _, w in results]
-    failed = any(w["overflowed"].any() for w in wins)
-    stats["overflowed"][:] = failed
-    for k in ("range_fail", "pack_overflow"):
-        stats[k] = stats[k] | np.any([w[k] for w in wins], axis=0)
-    for k in ("batch_n_bricks", "batch_n_lanes"):
-        per = np.stack([w[k] for w in wins])
-        stats[k], stats[k + "_max"] = per.sum(axis=0), per.max(axis=0)
-    if failed:
-        return _poisoned(state), stats
-    for k in ("num_occupied", "num_free"):
-        stats[k] = np.sum([w[k] for w in wins], axis=0)
-    # every owner applied every frame's aux: the source's full-frame count
-    stats["num_candidates"] = wins[0]["num_candidates"]
-    return ShardedBrickState(tuple(new for new, _ in results)), stats
+    state = commit(state, results, stats, ("batch_n_bricks", "batch_n_lanes"))
+    if not stats["overflowed"][0]:
+        # every owner applied every frame's aux: the source's full-frame
+        # count
+        stats["num_candidates"] = results[0][1]["num_candidates"]
+    return state, stats
 
 
 def _scan(
@@ -293,18 +279,13 @@ def _scan(
     at the first failed window, whose frames and every later one report
     ``overflowed``."""
     box_mins, box_bits = (None, None) if boxes is None else boxes
-    stats = {k: np.zeros(n_frames, dt) for k, dt in SHARDED_STAT_DTYPES.items()}
-    for w0 in range(start, n_frames, window):
-        w1 = min(w0 + window, n_frames)
-        box_min = None if boxes is None else box_mins[w0 // window]
-        state, win = _window(state, range(w0, w1), box_min,
-                             box_bits=box_bits, **kw)
-        for k, v in win.items():
-            stats[k][w0:w1] = v
-        if win["overflowed"][0]:
-            stats["overflowed"][w1:] = True
-            break
-    return state, stats
+
+    def step(st, frames):
+        box_min = None if boxes is None else box_mins[frames.start // window]
+        return _window(st, frames, box_min, box_bits=box_bits, **kw)
+
+    return scan_windows(state, start, n_frames=n_frames, window=window,
+                        step=step, stat_dtypes=SHARDED_STAT_DTYPES)
 
 
 def map_ping_sequence_sharded_frames(
@@ -341,31 +322,17 @@ def map_ping_sequence_sharded_frames(
     """
     cfg = cfg or MapperConfig()
     is_raw_mode(dense_mode)
-    if state is None:
-        state = init_sharded_brick_grid(make_mesh(mesh),
-                                        DEFAULT_LOCAL_CAPACITY, dtype)
-    elif mesh is not None and make_mesh(mesh) != state.mesh:
-        raise ValueError(f"mesh {make_mesh(mesh)} is not the state's "
-                         f"{state.mesh}")
-    if state.dtype != dtype:
-        raise ValueError(f"state is {state.dtype}, not {dtype}")
+    state = (init_sharded_brick_grid(mesh, DEFAULT_LOCAL_CAPACITY, dtype)
+             if state is None else check_sharded_state(state, mesh, dtype))
     mesh = state.mesh
     S = len(mesh)
-    images = np.asarray(images)
-    P, R, B = images.shape
+    images, tables, T = sequence_inputs(images, positions, quaternions, cfg,
+                                        tables)
+    P = len(images)
     if P == 0:
         return state, {k: np.zeros(0, dt)
                        for k, dt in SHARDED_STAT_DTYPES.items()}
-    if tables is None:
-        tables = resolve_capped_tables(images, cfg, R, B)
-    elif (tables.range_bins, tables.bearing_bins) != (R, B):
-        raise ValueError(
-            f"fan tables are for {tables.range_bins}x{tables.bearing_bins} "
-            f"images, not {R}x{B}"
-        )
-    T = batched_sonar_to_world(positions, quaternions, cfg)
     window = min(max(window, 1), P)
-    devices = dict.fromkeys(mesh)
     gbits = max(1, (max(S - 1, 1)).bit_length())
     f_bits = max(1, (window - 1).bit_length())
     boxes = compute_window_boxes(
@@ -373,10 +340,10 @@ def map_ping_sequence_sharded_frames(
         state.brick_bits, frame_bits=max(f_bits, 1 + gbits))
     scan = functools.partial(
         _scan, n_frames=P, window=window, boxes=boxes,
-        images_dev={d: to_device(images, d) for d in devices},
-        T_dev={d: torch.as_tensor(T, device=d).to(dtype) for d in devices},
+        images_dev=on_mesh(images, mesh), T_dev=on_mesh(T, mesh, dtype),
         frames_per_source=-(-window // S), tables=tables, cfg=cfg,
         dtype=dtype, dense_mode=dense_mode,
     )
     return run_grow_replay(state=state, n_frames=P, scan=scan,
+                           rehash=shard_brick.rehash_sharded_bricks,
                            label="sharded frame-parallel")

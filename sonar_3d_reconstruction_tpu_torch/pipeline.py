@@ -70,11 +70,15 @@ from sonar_3d_reconstruction_tpu_torch.grid.hash import (
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     FanTables,
     backproject_ping,
-    resolve_capped_tables,
+    tables_for_images,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import CompactRecords, UniqueRecords
 from sonar_3d_reconstruction_tpu_torch.ops.packing import compute_window_boxes
-from sonar_3d_reconstruction_tpu_torch.ops.records import FrameAux, frame_records
+from sonar_3d_reconstruction_tpu_torch.ops.records import (
+    FrameAux,
+    frame_records,
+    stack_frame_records,
+)
 
 # per-ping stats of each backend and their host dtypes
 STAT_DTYPES = {
@@ -156,13 +160,7 @@ def _window_records(
         )
         for i in frames
     ]
-    kind = type(outs[0][0])
-    recs = kind(*(torch.stack(x) for x in zip(*(r for r, _ in outs))))
-    auxs = FrameAux(*(torch.stack(x) for x in zip(*(a for _, a in outs))))
-    if raw:
-        return recs, auxs
-    width = max(1, int(recs.n_unique.max()))
-    return kind(*(x[:, :width] if x.dim() == 2 else x for x in recs)), auxs
+    return stack_frame_records(outs, cut=not raw)
 
 
 def _record_stats(stats, win, w0: int, w1: int) -> bool:
@@ -358,13 +356,7 @@ def map_ping_sequence(
         stat_dtypes = STAT_DTYPES if backend == "brick" else HASH_STAT_DTYPES
         return state, {k: np.zeros(0, dt) for k, dt in stat_dtypes.items()}
 
-    if tables is None:
-        tables = resolve_capped_tables(images, cfg, R, B)
-    elif (tables.range_bins, tables.bearing_bins) != (R, B):
-        raise ValueError(
-            f"fan tables are for {tables.range_bins}x{tables.bearing_bins} "
-            f"images, not {R}x{B}"
-        )
+    tables = tables_for_images(images, cfg, tables)
     T = batched_sonar_to_world(positions, quaternions, cfg)
     window = min(max(window, 1), P)
     images_dev = to_device(images, device)

@@ -1,6 +1,7 @@
-"""The port's sharded brick engine (``parallel/shard.py``,
-``parallel/shard_brick.py``, ``parallel/shard_frames.py``) and the grouped
-dedups against the JAX package's on its 8 virtual CPU devices.
+"""The port's sharded brick engines (``parallel/shard.py``,
+``parallel/shard_brick.py``, ``parallel/shard_frames.py``: the
+frame-parallel and the replicated-records engine) and the grouped dedups
+against the JAX package's on its 8 virtual CPU devices.
 
 Both packages take the same numpy-seeded pings (100x64, 5 m at 0.1 m
 voxels unless a test says otherwise).  The port's mesh repeats the CPU:
@@ -34,6 +35,7 @@ from sonar_3d_reconstruction_tpu.parallel.shard import (  # noqa: E402
 )
 from sonar_3d_reconstruction_tpu.parallel.shard_brick import (  # noqa: E402
     local_brick_states as j_local_brick_states,
+    map_ping_sequence_sharded_brick as j_sharded_brick,
     owner_shard_brick as j_owner_shard_brick,
 )
 from sonar_3d_reconstruction_tpu.parallel.shard_frames import (  # noqa: E402
@@ -62,6 +64,7 @@ from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (  # noqa: E4
     gather_sharded_brick_state,
     init_sharded_brick_grid,
     local_brick_states,
+    map_ping_sequence_sharded_brick,
     owner_shard_brick,
     rehash_sharded_bricks,
     sharded_brick_bounds,
@@ -119,6 +122,27 @@ def jax_sharded(n_shards, dtype, cfg=SMALL_CFG, n=N_PINGS, window=WINDOW):
     shards = [by_key(*j_touched_voxels_brick(s))
               for s in j_local_brick_states(state)]
     return shards, {k: np.asarray(v) for k, v in stats.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_replicated(n_shards, window=WINDOW):
+    """JAX's replicated-records brick map of ``survey()`` (float64) on the
+    first ``n_shards`` virtual devices: (each shard's sorted (keys,
+    log-odds), per-ping stats)."""
+    state, stats = j_sharded_brick(
+        *survey(), SMALL_CFG, mesh=j_make_mesh(jax.devices()[:n_shards]),
+        dtype=jnp.float64, window=window, local_capacity=CAPACITY)
+    shards = [by_key(*j_touched_voxels_brick(s))
+              for s in j_local_brick_states(state)]
+    return shards, {k: np.asarray(v) for k, v in stats.items()}
+
+
+def port_replicated(n_shards, capacity=CAPACITY, **kw):
+    """The port's replicated-records map of ``survey()`` (float64, windows
+    of WINDOW) on ``("cpu",) * n_shards``."""
+    return map_ping_sequence_sharded_brick(
+        *survey(), port_cfg(SMALL_CFG), mesh=["cpu"] * n_shards,
+        local_capacity=capacity, dtype=torch.float64, window=WINDOW, **kw)
 
 
 def port_sharded(n_shards, dtype, cfg=SMALL_CFG, n=N_PINGS, window=WINDOW,
@@ -390,3 +414,111 @@ def test_state_layer_views_and_growth():
         map_ping_sequence_sharded_frames(
             *survey(2), port_cfg(SMALL_CFG), mesh=["cpu"] * 3, state=state,
             dtype=torch.float64)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_replicated_brick_engine_matches_jax(n_shards):
+    """The replicated-records engine at S = 2 and 4, float64, windows of 4
+    with a partial last one: each shard holds JAX's voxels, per-ping stats
+    equal."""
+    state, stats = port_replicated(n_shards)
+    want, w_stats = jax_replicated(n_shards)
+    assert_shards_match(port_shards(state), want, "f64")
+    for k in STATS + ("range_fail", "pack_overflow"):
+        np.testing.assert_array_equal(stats[k], w_stats[k], k)
+    assert state.local_capacity == CAPACITY and state.n_shards == n_shards
+
+
+def test_replicated_brick_engine_equals_frame_parallel_and_brick_maps():
+    """S = 3: the replicated-records map is the frame-parallel engine's
+    shard for shard and the single-card brick map voxel for voxel,
+    log-odds bit-equal, with its bounds and per-ping stats."""
+    single, s_stats = pipeline.map_ping_sequence(
+        *survey(), port_cfg(SMALL_CFG), device="cpu", dtype=torch.float64,
+        window=WINDOW)
+    state, stats = port_replicated(3)
+    frames, _ = port_sharded(3, "f64")
+    for got, want in zip(port_shards(state), port_shards(frames)):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    keys, lo = by_key(*gather_sharded_brick_state(state))
+    want = by_key(*touched_voxels_brick(single))
+    np.testing.assert_array_equal(keys, want[0])
+    np.testing.assert_array_equal(lo, want[1])
+    for k in STATS + ("range_fail", "pack_overflow"):
+        np.testing.assert_array_equal(stats[k], s_stats[k], k)
+    bmin, bmax = sharded_brick_bounds(state)
+    np.testing.assert_array_equal(bmin, single.min_bounds.numpy())
+    np.testing.assert_array_equal(bmax, single.max_bounds.numpy())
+    assert int(state.used.sum()) == len(keys)
+    assert (stats["batch_n_lanes_max"] <= stats["batch_n_lanes"]).all()
+    assert (stats["batch_n_bricks_max"] > 0).all()
+
+
+def test_replicated_growth_replays_all_or_nothing(monkeypatch):
+    """From 128 bricks a shard the replicated-records map grows (every
+    shard to one capacity) and equals the big-table map.  A window that
+    fails on one shard commits on none: every table is the one before
+    it, all poisoned."""
+    big, _ = port_replicated(4)
+    state, stats = port_replicated(4, capacity=128)
+    assert state.local_capacity > 128 and not stats["overflowed"].any()
+    assert {s.capacity for s in state.shards} == {state.local_capacity}
+    for got, want in zip(port_shards(state), port_shards(big)):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+    real = shard_brick.apply_brick_records_wide
+    calls = []
+
+    def flaky(sub, *args, **kw):
+        new, win = real(sub, *args, **kw)
+        calls.append(len(calls))
+        if len(calls) == 4 + 2:  # window 1, shard 1
+            win = dict(win, overflowed=torch.ones_like(win["overflowed"]))
+            new = sub._replace(poisoned=torch.ones_like(sub.poisoned))
+        return new, win
+
+    monkeypatch.setattr(shard_brick, "apply_brick_records_wide", flaky)
+    rehashes = []
+
+    def counted(st, cap):
+        rehashes.append(st)
+        return rehash_sharded_bricks(st, cap)
+
+    monkeypatch.setattr(shard_brick, "rehash_sharded_bricks", counted)
+    state, stats = port_replicated(4)
+    (failed,) = rehashes
+    assert all(bool(p) for p in failed.poisoned)
+    assert state.local_capacity == 2 * CAPACITY
+    first, _ = map_ping_sequence_sharded_brick(
+        *(x[:WINDOW] for x in survey()), port_cfg(SMALL_CFG),
+        mesh=["cpu"] * 4,
+        local_capacity=CAPACITY, dtype=torch.float64, window=WINDOW)
+    for a, b in zip(failed.shards, first.shards):
+        assert torch.equal(a.key_rows, b.key_rows)
+        assert torch.equal(a.log_odds, b.log_odds)
+    for got, want in zip(port_shards(state), port_shards(big)):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    assert not stats["overflowed"].any()
+
+
+def test_replicated_engine_refusals():
+    """Keys out of range are fatal; without a card a mesh of None raises
+    (no CPU fallback); a resumed map on another mesh is a ValueError."""
+    images, positions, quats = survey(4)
+    with pytest.raises(ValueError, match="packable range"):
+        map_ping_sequence_sharded_brick(
+            images, positions + [6.0e4, 0.0, 0.0], quats,
+            port_cfg(SMALL_CFG), mesh=["cpu"] * 2, dtype=torch.float64,
+            window=2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            map_ping_sequence_sharded_brick(images, positions, quats,
+                                            port_cfg(SMALL_CFG))
+    state = init_sharded_brick_grid(["cpu"] * 2, CAPACITY, torch.float64)
+    with pytest.raises(ValueError, match="not the state's"):
+        map_ping_sequence_sharded_brick(
+            images, positions, quats, port_cfg(SMALL_CFG),
+            mesh=["cpu"] * 3, state=state, dtype=torch.float64)
