@@ -159,15 +159,19 @@ Phases (each prints its own line; any failure raises and exits non-zero):
       and every array of every shard bit-equal; the occupied fan's trig
       lookup against direct cos/sin on the card.
    Each path's K1 launches are counted as in phase 5.
-10. the replicated-records engines on the card (every shard computes
-   every frame's records; on one card the records half runs SHARDED_S
-   times), their mesh the card repeated SHARDED_S times:
+10. the sharded hash engine and the replicated-records brick engine on
+   the card, their mesh the card repeated SHARDED_S times (in the window
+   engines every shard computes every frame's records, so on one card
+   their records half runs SHARDED_S times; the hash engine's window-1
+   step computes each ping's records once):
    a. phase 2's survey through ``parallel.map_ping_sequence_sharded``
       (the sharded hash engine) at window 16, and its first HASH_W1_PINGS
       pings at window 1: per-ping stats, voxels and log-odds equal 7a's
       runs of the same pings, every voxel on its owner shard; wall,
-      pings/s, rehash calls, voxels per shard, peak memory, and the
-      applies' seconds against the rest of the wall (the records half);
+      pings/s, rehash calls, voxels per shard, peak memory, the applies'
+      seconds against the rest of the wall (the records half) and the
+      ``backproject_ping`` calls; the window-1 wall beside 7a's window 1
+      in the same call;
    b. ``save_map`` of that map: its snapshot's voxels, log-odds and
       bounds equal 7a's snapshot (step 7c's file); ``load_map`` of it;
    c. the survey through ``parallel.map_ping_sequence_sharded_brick``
@@ -179,6 +183,25 @@ Phases (each prints its own line; any failure raises and exits non-zero):
       per-ping stats and every array of every shard bit-equal;
    e. ``utils.profiling.device_trace`` around one sharded hash window:
       the Chrome trace it writes names CUDA kernels.
+
+11. the rest of the port's surface on the card:
+   a. OWNER_BLOCK_PINGS float64 pings through
+      ``parallel.map_ping_sequence_sharded`` on the mixed mesh (card,
+      CPU, card, CPU) against the CPU mesh, at window 1 (each ping's owner
+      blocks made on the card and copied to the CPU shards) and at window
+      OWNER_BLOCK_PINGS: per-ping stats and every array of every shard
+      bit-equal; ``backproject_ping`` called once a ping at window 1 and
+      SHARDED_S times a ping at the window; no growth;
+   b. phase 2's survey through ``parallel.map_ping_sequence_sharded_
+      frames(dense_mode="pallas-raw")`` at SHARDED_S shards, window 16:
+      per-ping stats, voxels and log-odds equal phase 2's; K1-raw launches
+      counted (one a shard a window, no K1); K1-raw against its plain
+      version on the widest shard window in float32 and float64, timed
+      against its bound;
+   c. ``geometry.compose_pose_chain(pose_matrices_from_quaternions(...),
+      T_mount)`` in float64 for the survey's poses on the card: within
+      POSE_TOL of the host's ``batched_sonar_to_world``, and bit-equal
+      (with ``rotations_from_quaternions``) to the CPU's.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -366,7 +389,8 @@ def k2_bytes(khi, klo, upd, key_rows, values):
 def keep_widest_k1_call(raw):
     """While open, ``grid.brick``'s K1 wrapper of the form ``raw`` also
     keeps copies of the inputs of its call with the most record lanes in
-    the dict it yields (``L``: the lanes, ``args``: the inputs)."""
+    the dict it yields (``L``: the lanes, ``args``: the inputs, ``kw``:
+    the keyword arguments)."""
     from sonar_3d_reconstruction_tpu_torch.grid import brick
 
     name = "bin_apply_raw" if raw else "bin_apply"
@@ -375,7 +399,7 @@ def keep_widest_k1_call(raw):
 
     def wrapped(s_flat, s_pay, starts, rows_cur, **kw):
         if s_flat.shape[0] > kept.get("L", -1):
-            kept.update(L=s_flat.shape[0], args=tuple(
+            kept.update(L=s_flat.shape[0], kw=dict(kw), args=tuple(
                 t.clone() for t in (s_flat, s_pay, starts, rows_cur)))
         return fn(s_flat, s_pay, starts, rows_cur, **kw)
 
@@ -1931,8 +1955,8 @@ def _hash_main(dev, smi, main_voxels, main_stats):
     """7a: the survey through the hash backend in windows of 16 (twice; the
     second run is reported) and its first HASH_W1_PINGS pings one by one,
     against the brick maps of the same pings.  Returns (the hash map,
-    facts, the per-ping stats of both runs and the window-1 map's voxels
-    for phase 10)."""
+    facts, the per-ping stats of both runs, the window-1 map's voxels and
+    its wall for phase 10)."""
     import torch
 
     from bench import make_inputs
@@ -1987,7 +2011,7 @@ def _hash_main(dev, smi, main_voxels, main_stats):
         flush=True,
     )
     return st, facts, dict(stats=stats, w1_stats=w1_stats,
-                           w1_voxels=_touched(w1))
+                           w1_voxels=_touched(w1), w1_s=w1_s)
 
 
 def _wide_keys(dev, smi):
@@ -2900,19 +2924,23 @@ def phase_sharded(dev, smi, main_voxels, main_stats, wide_voxels,
 
 @contextlib.contextmanager
 def probe_replicated():
-    """While open, the replicated-records engines' applies are timed and
-    their growth calls counted, in the dict it yields: ``apply_s`` (every
-    shard's apply, a sync before and after; the records before it end in a
-    sync already, and the stats after it in one) and ``rehashes`` (each
-    call grows every shard, with replay)."""
+    """While open, the sharded hash and replicated-records engines' applies
+    are timed and their growth calls and backprojections counted, in the
+    dict it yields: ``apply_s`` (every shard's apply, a sync before and
+    after; the records before it end in a sync already, and the stats
+    after it in one), ``rehashes`` (each call grows every shard, with
+    replay) and ``backprojections`` (``backproject_ping`` calls of
+    ``parallel/shard.py``: one a ping at window 1, one a shard a ping in
+    the window engines)."""
     import torch
 
     from sonar_3d_reconstruction_tpu_torch.parallel import shard, shard_brick
 
-    probe = dict(apply_s=0.0, rehashes=0)
-    names = [(shard, "_apply_ping"), (shard, "apply_records_batched"),
+    probe = dict(apply_s=0.0, rehashes=0, backprojections=0)
+    names = [(shard, "apply_frame_records"), (shard, "apply_records_batched"),
              (shard_brick, "apply_brick_records_wide"),
-             (shard, "rehash_sharded"), (shard_brick, "rehash_sharded_bricks")]
+             (shard, "rehash_sharded"), (shard_brick, "rehash_sharded_bricks"),
+             (shard, "backproject_ping")]
     saved = {(m, n): getattr(m, n) for m, n in names}
 
     def timed(fn):
@@ -2925,14 +2953,16 @@ def probe_replicated():
             return out
         return wrapped
 
-    def counted(fn):
+    def counted(fn, key):
         def wrapped(*args, **kw):
-            probe["rehashes"] += 1
+            probe[key] += 1
             return fn(*args, **kw)
         return wrapped
 
     for (m, n), fn in saved.items():
-        setattr(m, n, counted(fn) if n.startswith("rehash") else timed(fn))
+        setattr(m, n, counted(fn, "rehashes") if n.startswith("rehash")
+                else counted(fn, "backprojections") if n == "backproject_ping"
+                else timed(fn))
     try:
         yield probe
     finally:
@@ -3023,6 +3053,8 @@ def _replicated_hash(dev, smi, hash_voxels, hash_runs):
                              f"{w1_what} vs 7a")[0]
     _check_owners(w1, w1_what)
     rest = wall - probe["apply_s"]
+    w1_7a = hash_runs["w1_s"]
+    w1_bp = w1_probe["backprojections"] / HASH_W1_PINGS
     print(
         f"phase 10a sharded hash, S={SHARDED_S} on {dev} x {SHARDED_S}: 256 "
         f"pings of 500x512, window 16, float32, through "
@@ -3033,10 +3065,19 @@ def _replicated_hash(dev, smi, hash_voxels, hash_runs):
         f"calls ({st.local_capacity} slots a shard); applies "
         f"{probe['apply_s']:.3f} s, the rest (records of every frame on each "
         f"of the {SHARDED_S} shards, commit) {rest:.3f} s = "
-        f"{rest / wall:.1%} of the wall.  Window 1 over {HASH_W1_PINGS} "
-        f"pings: {w1_s:.3f} s, {HASH_W1_PINGS / w1_s:.1f} pings/s, "
+        f"{rest / wall:.1%} of the wall; {probe['backprojections']} "
+        f"backproject_ping calls ({probe['backprojections'] / len(images):.2f} a "
+        f"ping, replays included).  Window 1 over {HASH_W1_PINGS} pings "
+        f"(each ping's records once, owner blocks): {w1_s:.3f} s, "
+        f"{HASH_W1_PINGS / w1_s:.1f} pings/s, {w1_s / w1_7a:.2f}x 7a's "
+        f"window 1 in this call ({w1_7a:.3f} s; with every shard deriving "
+        f"its records, two earlier runs on an H100 80GB HBM3 at 700 W: "
+        f"1.007 / 0.957 s against 7a's 0.308 / 0.327 s); "
         f"{w1_voxels} voxels and stats equal 7a's window-1 run, applies "
-        f"{w1_probe['apply_s']:.3f} s [{smi}]",
+        f"{w1_probe['apply_s']:.3f} s, the rest "
+        f"{w1_s - w1_probe['apply_s']:.3f} s; {w1_probe['backprojections']} "
+        f"backproject_ping calls ({w1_bp:.2f} a ping, with the replays of "
+        f"{w1_probe['rehashes']} rehash calls) [{smi}]",
         flush=True,
     )
 
@@ -3067,9 +3108,12 @@ def _replicated_hash(dev, smi, hash_voxels, hash_runs):
                 rehash_calls=probe["rehashes"],
                 local_capacity=st.local_capacity, voxels_per_shard=per_shard,
                 apply_s=probe["apply_s"], records_and_commit_s=rest,
+                backprojections=probe["backprojections"],
                 window1_s=w1_s, window1_pings_per_sec=HASH_W1_PINGS / w1_s,
-                window1_apply_s=w1_probe["apply_s"], save_map_s=save_s,
-                load_map_s=load_s)
+                window1_apply_s=w1_probe["apply_s"],
+                window1_backprojections=w1_probe["backprojections"],
+                hash_window1_s=w1_7a, window1_over_hash=w1_s / w1_7a,
+                save_map_s=save_s, load_map_s=load_s)
 
 
 def _replicated_brick(dev, smi, main_voxels, main_stats):
@@ -3272,6 +3316,232 @@ def phase_replicated(dev, smi, main_voxels, main_stats, hash_voxels,
                  replicated_float64=f64, sharded_trace=trace))
 
 
+# phase 11: the sharded hash engine's window-1 step across devices, K1-raw
+# through the frame-parallel engine, and the batched pose functions on the
+# card.  11b maps phase 2's whole survey; 11a's pings are cut to
+# OWNER_BLOCK_PINGS because its reference runs in float64 on the CPU.
+OWNER_BLOCK_PINGS = 16
+OWNER_BLOCK_CAPACITY = 1 << 18   # slots a shard: 11a never grows
+POSE_TOL = 1e-12      # 11c: the torch pose chain against the host's
+
+
+def _owner_blocks_across_devices(dev, smi, inputs):
+    """11a: OWNER_BLOCK_PINGS float64 pings through map_ping_sequence_sharded
+    on the mixed mesh (card, CPU) * (SHARDED_S / 2) against the same pings
+    on (CPU,) * SHARDED_S, at window 1 (each ping's records once on the
+    card, the CPU shards' blocks copied to them) and at window
+    OWNER_BLOCK_PINGS (every shard derives its own): per-ping stats and
+    every array of every shard bit-equal, no growth, backproject_ping
+    calls 1 a ping at window 1 and SHARDED_S at the window.  Returns
+    facts."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+        sharded_hash_state_to_numpy,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = (x[:OWNER_BLOCK_PINGS] for x in inputs)
+    cpu = torch.device("cpu")
+    meshes = {"mixed": (dev, cpu) * (SHARDED_S // 2), "cpu": (cpu,) * SHARDED_S}
+    facts = {}
+    for window, per_ping in ((1, 1), (OWNER_BLOCK_PINGS, SHARDED_S)):
+        out = {}
+        for name, mesh in meshes.items():
+            with probe_replicated() as probe:
+                (st, stats), secs = _wall(lambda: map_ping_sequence_sharded(
+                    images, positions, quats, cfg, mesh=mesh,
+                    local_capacity=OWNER_BLOCK_CAPACITY, window=window,
+                    dtype=torch.float64))
+            what = f"11a window {window} on the {name} mesh"
+            if probe["rehashes"] or st.mesh != mesh:
+                raise AssertionError(f"{what}: {probe['rehashes']} rehash "
+                                     f"calls, shards on {st.mesh}")
+            if probe["backprojections"] != per_ping * OWNER_BLOCK_PINGS:
+                raise AssertionError(
+                    f"{what}: {probe['backprojections']} backproject_ping "
+                    f"calls, not {per_ping} a ping")
+            out[name] = (stats, sharded_hash_state_to_numpy(st), secs)
+        (m_stats, m, m_s), (c_stats, c, c_s) = out["mixed"], out["cpu"]
+        what = f"11a window {window}, mixed mesh vs CPU mesh"
+        _same_stats(m_stats, c_stats, what, keys=list(c_stats))
+        for k in c:
+            if m[k].shape != c[k].shape or not np.array_equal(m[k], c[k]):
+                raise AssertionError(f"{what}: shard arrays {k} differ")
+        facts[f"window{window}"] = dict(
+            mixed_s=m_s, cpu_s=c_s, voxels=int(c["used"].sum()),
+            per_shard=c["used"].tolist(), backprojections_per_ping=per_ping)
+    w1, wn = facts["window1"], facts[f"window{OWNER_BLOCK_PINGS}"]
+    print(
+        f"phase 11a sharded hash across devices: {OWNER_BLOCK_PINGS} pings "
+        f"of 500x512, float64, S={SHARDED_S}, mesh {meshes['mixed']} against "
+        f"(cpu,) * {SHARDED_S}: per-ping stats and every array of every "
+        f"shard bit-equal at window 1 (owner blocks made on {dev}, copied to "
+        f"the CPU shards; {w1['voxels']} voxels, per shard "
+        f"{w1['per_shard']}; mixed {w1['mixed_s']:.3f} s, CPU "
+        f"{w1['cpu_s']:.3f} s) and at window {OWNER_BLOCK_PINGS} (mixed "
+        f"{wn['mixed_s']:.3f} s, CPU {wn['cpu_s']:.3f} s); backproject_ping "
+        f"calls a ping: 1 at window 1, {SHARDED_S} at window "
+        f"{OWNER_BLOCK_PINGS}; no rehash [{smi}]",
+        flush=True,
+    )
+    return facts
+
+
+def _sharded_raw(dev, smi, inputs, main_voxels, main_stats):
+    """11b: phase 2's survey through map_ping_sequence_sharded_frames with
+    dense_mode="pallas-raw" on (card,) * SHARDED_S, window 16, float32:
+    per-ping stats and log-odds equal phase 2's; K1-raw launches counted
+    (the counts set to 0 just before, read just after; one a shard a
+    window) and no K1; K1-raw against its plain version on the widest
+    shard window in float32 and float64, timed against its bound.
+    Returns (K1-raw launches, facts)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded_frames,
+    )
+
+    cfg = MapperConfig()
+    images, positions, quats = inputs
+    what = f"map_ping_sequence_sharded_frames pallas-raw (S={SHARDED_S})"
+    with keep_widest_k1_call(raw=True) as kept, \
+            count_sharded_rehashes() as grown:
+        _reset_counts()
+        (st, stats), wall = _wall(lambda: map_ping_sequence_sharded_frames(
+            images, positions, quats, cfg, mesh=(dev,) * SHARDED_S,
+            window=16, dtype=torch.float32, dense_mode="pallas-raw"))
+        launches, other = k1.raw_launches, k1.launches
+    want_launches = len(images) // 16 * SHARDED_S
+    if other or launches == 0 or (not grown["n"]
+                                  and launches != want_launches):
+        raise AssertionError(f"{what}: {launches} bin_apply_raw launches "
+                             f"(expected {want_launches}), {other} "
+                             f"bin_apply, {grown['n']} rehash calls")
+    _same_stats(stats, main_stats, f"{what} vs phase 2")
+    voxels = _same_voxels(_touched(st), _by_key(main_voxels), 0.0,
+                          f"{what} vs phase 2")[0]
+    args, kw = kept["args"], kept["kw"]
+    max_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        a = args[:3] + (args[3].to(dtype),)
+        got = k1.bin_apply_raw(*a, **kw)
+        want = k1.bin_apply_raw_reference(*a, **kw)
+        err = float((got[0].double() - want[0].double()).abs().max())
+        if err > KERNEL_TOL or not all(
+                torch.equal(g, w) for g, w in zip(got[1:], want[1:])):
+            raise AssertionError(f"bin_apply_raw != plain on the widest "
+                                 f"sharded raw window ({dtype}): max |diff| "
+                                 f"{err}")
+        max_err = max(max_err, err)
+    ms = _device_ms(lambda: k1.bin_apply_raw(*args, **kw), "bin_apply_kernel")
+    plain_ms = _time_ms(lambda: k1.bin_apply_raw_reference(*args, **kw))
+    nbytes = k1_bytes(args, True, kw["B"])[0]
+    bound_ms = _bound_ms(nbytes)
+    nb, lanes = args[3].shape[0], args[0].shape[0]
+    print(
+        f"phase 11b {what} on {dev} x {SHARDED_S}: {len(images)} pings of "
+        f"500x512, window 16, float32, compact box keys: per-ping stats and "
+        f"{voxels} voxels equal phase 2's map, log-odds bit-equal; wall "
+        f"{wall:.3f} s, {len(images) / wall:.1f} pings/s, {launches} "
+        f"bin_apply_raw launches (expected {want_launches}: one a shard a "
+        f"window), 0 bin_apply, {grown['n']} rehash calls; bin_apply_raw == "
+        f"plain in float32 and float64 on the widest shard window (NB={nb}, "
+        f"L={lanes}, max |diff| {max_err}, tolerance {KERNEL_TOL}), "
+        f"{ms:.4f} ms device time (plain {plain_ms:.4f} ms), bound "
+        f"{bound_ms:.4f} ms ({nbytes} bytes, {bound_ms / ms:.1%} of it) "
+        f"[{smi}]",
+        flush=True,
+    )
+    return launches, dict(
+        wall_s=wall, pings_per_sec=len(images) / wall, launches=launches,
+        rehash_calls=grown["n"], voxels=voxels, max_abs_err=max_err,
+        widest_ms=ms, widest_plain_ms=plain_ms, widest_bound_ms=bound_ms,
+        widest_bytes=nbytes, widest_nb=nb, widest_lanes=lanes)
+
+
+def _poses_on_card(dev, smi, inputs):
+    """11c: geometry.compose_pose_chain(pose_matrices_from_quaternions(
+    positions, quaternions), T_mount) in float64 for the survey's poses on
+    the card: within POSE_TOL of the host's batched_sonar_to_world, and
+    bit-equal to the same functions on the CPU.  Returns facts."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.geometry import (
+        batched_sonar_to_world,
+        compose_pose_chain,
+        pose_matrices_from_quaternions,
+        pose_matrix_from_rpy,
+        rotations_from_quaternions,
+    )
+
+    cfg = MapperConfig()
+    _, positions, quats = inputs
+    T_mount = pose_matrix_from_rpy(np.asarray(cfg.sonar_position, np.float64),
+                                   np.asarray(cfg.sonar_orientation,
+                                              np.float64))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        def f64(x):
+            return torch.as_tensor(x, dtype=torch.float64, device=d)
+
+        (T, R), secs = _wall(lambda: (
+            compose_pose_chain(pose_matrices_from_quaternions(
+                f64(positions), f64(quats)), f64(T_mount)),
+            rotations_from_quaternions(f64(quats))))
+        if T.device != d or T.dtype != torch.float64:
+            raise AssertionError(f"11c: the chain came back on {T.device}, "
+                                 f"{T.dtype}")
+        out.append((T.cpu().numpy(), R.cpu().numpy(), secs))
+    (g, g_r, g_s), (c, c_r, _) = out
+    err = float(np.abs(g - batched_sonar_to_world(positions, quats,
+                                                  cfg)).max())
+    if err > POSE_TOL:
+        raise AssertionError(f"11c: the card's pose chain is {err} off the "
+                             f"host's (tolerance {POSE_TOL})")
+    if not (np.array_equal(g, c) and np.array_equal(g_r, c_r)):
+        raise AssertionError("11c: the pose functions differ between the "
+                             "card and the CPU")
+    print(
+        f"phase 11c pose functions on {dev}: {len(positions)} survey poses "
+        f"in float64, compose_pose_chain(pose_matrices_from_quaternions(...),"
+        f" T_mount) within {err:.3g} of batched_sonar_to_world (tolerance "
+        f"{POSE_TOL}); poses and rotations bit-equal to the CPU's; "
+        f"{g_s * 1e3:.3f} ms on the card [{smi}]",
+        flush=True,
+    )
+    return dict(poses=len(positions), max_abs_err=err, card_ms=g_s * 1e3)
+
+
+def phase_owner_blocks_raw_poses(dev, smi, main_voxels, main_stats):
+    """Phase 11: 11a the sharded hash engine's window-1 step across
+    devices, 11b K1-raw through the frame-parallel engine, 11c the pose
+    functions on the card.  Returns ({path: K1-raw launches}, measured
+    numbers)."""
+    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+
+    t0 = time.perf_counter()
+    inputs = make_inputs(MapperConfig(), 256)
+    owner_blocks = _owner_blocks_across_devices(dev, smi, inputs)
+    launches, raw = _sharded_raw(dev, smi, inputs, main_voxels, main_stats)
+    poses = _poses_on_card(dev, smi, inputs)
+    print(f"phase 11 owner blocks, sharded raw path, poses: "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    return ({f"map_ping_sequence_sharded_frames pallas-raw "
+             f"(S={SHARDED_S})": launches},
+            dict(owner_blocks=owner_blocks, sharded_raw=raw, poses=poses))
+
+
 def main() -> int:
     import torch
 
@@ -3312,6 +3582,8 @@ def main() -> int:
     replicated_launches, replicated = phase_replicated(
         dev, smi, main_voxels, main_stats, hash_voxels, hash_runs)
     del hash_voxels, hash_runs
+    raw_sharded_launches, late_checks = phase_owner_blocks_raw_poses(
+        dev, smi, main_voxels, main_stats)
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -3323,10 +3595,13 @@ def main() -> int:
               **stream_launches["bin_apply"], **wide_launches,
               **late_launches, **sharded_launches, **replicated_launches),
          dict(k1, entry_points=entry, stream=stream, **hash_wide,
-              **dense_fold, **sharded, **replicated)),
+              **dense_fold, **sharded, **replicated,
+              owner_blocks=late_checks["owner_blocks"],
+              poses=late_checks["poses"])),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
-          **stream_launches["bin_apply_raw"]}, k1_raw),
+          **stream_launches["bin_apply_raw"], **raw_sharded_launches},
+         dict(k1_raw, sharded_raw=late_checks["sharded_raw"])),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",
          "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, {}, k2),

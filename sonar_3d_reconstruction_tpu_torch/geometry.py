@@ -1,14 +1,16 @@
-"""SE(3) host pose functions (float64 NumPy) and the batched sonar pose chain.
+"""SE(3) host pose functions (float64 NumPy), the batched sonar pose chain,
+and its batched torch form on the caller's device.
 
 Conventions match the reference (and ``sonar_3d_reconstruction_tpu.geometry``):
 RPY is ZYX (yaw*pitch*roll); quaternions are [x, y, z, w], assumed unit and
-not normalised.  Poses stay float64 on the host; the device code receives
-the cast result.
+not normalised.  The mapping paths keep poses float64 on the host
+(``batched_sonar_to_world``); the device code receives the cast result.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
 
@@ -108,3 +110,45 @@ def batched_sonar_to_world(
         np.asarray(cfg.sonar_orientation, np.float64),
     )
     return T @ T_s2b
+
+
+# ---------------------------------------------------------------------------
+# Batched torch versions (the caller's device and dtype)
+# ---------------------------------------------------------------------------
+
+
+def rotations_from_quaternions(q: torch.Tensor) -> torch.Tensor:
+    """Batched [..., 4] xyzw quaternions -> [..., 3, 3] rotation matrices."""
+    x, y, z, w = q.unbind(-1)
+    one = torch.ones_like(x)
+    rows = [
+        [one - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), one - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), one - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def pose_matrices_from_quaternions(
+    positions: torch.Tensor, quaternions: torch.Tensor
+) -> torch.Tensor:
+    """Batched [..., 3] positions + [..., 4] quaternions -> [..., 4, 4]."""
+    R = rotations_from_quaternions(quaternions)
+    top = torch.cat([R, positions[..., :, None].to(R.dtype)], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(R.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def compose_pose_chain(
+    T_base_to_world: torch.Tensor, T_sonar_to_base: torch.Tensor
+) -> torch.Tensor:
+    """Batched T_sonar_to_world = T_base_to_world @ T_sonar_to_base
+    (reference 3d_mapper.py:519-521): [..., 4, 4] poses and one (4, 4)
+    mount.  The products are summed in a fixed order (j = 0..3), one
+    elementwise pass each, so the card and the CPU give the same bits."""
+    B = T_sonar_to_base.to(T_base_to_world)
+    out = T_base_to_world[..., :, 0:1] * B[0]
+    for j in range(1, 4):
+        out = out + T_base_to_world[..., :, j:j + 1] * B[j]
+    return out

@@ -35,7 +35,11 @@ import numpy as np
 import torch
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
-from sonar_3d_reconstruction_tpu_torch.ops.dedup import UniqueRecords, dedup_frame
+from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
+    UniqueRecords,
+    dedup_frame,
+    running_max,
+)
 from sonar_3d_reconstruction_tpu_torch.ops.logodds import (
     finalize_voxel_updates,
     probability_to_log_odds,
@@ -125,7 +129,7 @@ def plan_insert(
     new_b = torch.cat([
         torch.ones(1, dtype=torch.bool, device=device), s_bkt[1:] != s_bkt[:-1]
     ])
-    start = torch.cummax(torch.where(new_b, idx, -1), dim=0).values
+    start = running_max(torch.where(new_b, idx, -1))
     rank = idx - start
     active = s_bkt != U32
     pos = s_fill + rank
@@ -378,7 +382,7 @@ def apply_records_batched(
     new_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
                          s_code[1:] != s_code[:-1]])
     seg_valid = s_code != EMPTY64
-    rank = idx - torch.cummax(torch.where(new_seg, idx, -1), dim=0).values
+    rank = idx - running_max(torch.where(new_seg, idx, -1))
     n_unique, n_lanes, max_rank, range_fail, poisoned = torch.stack([
         (new_seg & seg_valid).sum(), seg_valid.sum(),
         torch.where(seg_valid, rank, 0).max(), auxs.range_fail.any(),
@@ -506,6 +510,11 @@ def load_voxels_hash(
 # ---------------------------------------------------------------------------
 # Reads: extraction, snapshots and point queries
 # ---------------------------------------------------------------------------
+
+
+def occupied_key_mask(state: HashGridState) -> np.ndarray:
+    """(C,) host bool mask of the slots that hold a key, in slot order."""
+    return (state.key_hi != EMPTY_HI).cpu().numpy()
 
 
 def _exact_gt_threshold(thr: float, dtype: torch.dtype) -> float:

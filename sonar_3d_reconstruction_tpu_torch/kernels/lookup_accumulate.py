@@ -40,6 +40,7 @@ from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     plan_insert,
 )
 from sonar_3d_reconstruction_tpu_torch.kernels.build import build_shared_library
+from sonar_3d_reconstruction_tpu_torch.ops.dedup import running_max
 from sonar_3d_reconstruction_tpu_torch.ops.packing import EMPTY_HI, U32, mix2
 
 SOURCE = "lookup_accumulate.cu"
@@ -176,7 +177,7 @@ def lookup_accumulate_plain(
     pos = torch.arange(s_slot.numel(), device=device)
     starts = torch.ones_like(s_slot, dtype=torch.bool)
     starts[1:] = s_slot[1:] != s_slot[:-1]
-    turn = pos - torch.cummax(torch.where(starts, pos, -1), dim=0).values
+    turn = pos - running_max(torch.where(starts, pos, -1))
     flat = values.reshape(-1).clone()
     for q in range(int(turn.max()) + 1 if turn.numel() else 0):
         sel = turn == q

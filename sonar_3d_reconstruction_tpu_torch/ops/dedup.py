@@ -66,6 +66,12 @@ class UniqueRecords(NamedTuple):
         return self.hi != EMPTY_HI
 
 
+def running_max(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running maximum along dim 0: the segment rebase and rank
+    primitive of the bucket insert and the window sorts."""
+    return torch.cummax(x, dim=0).values
+
+
 def _dedup_codes(code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor):
     """The two-word dedup on (N,) 60-bit codes: (record codes in ascending
     order, count, n_occ, valid lanes, n_unique, the sort's lane

@@ -17,16 +17,25 @@ the owner bits are independent of the in-shard bucket bits) and
 ``owner_shard_brick`` for brick codes (the offset bits masked, so a brick
 stays on one shard).
 
-Replicated records.  The sharded hash engine here and the
+Replicated records.  The sharded hash engine's window engine and the
 replicated-records brick engine (parallel/shard_brick.py) share one
 design, the body of the JAX engines' ``shard_map``: every shard computes
 every frame's candidates on its own device, keeps the lanes it owns and
 dedups them (``owned_frame_records``), then applies its records to its own
 sub-table.  Ownership partitions the candidates before the dedup, so each
 voxel's whole update chain runs on its owner and the sharded map equals
-the single-card one voxel for voxel.  JAX computes the candidates once and
-all-gathers them; the records are the same either way.  On one card
-(``mesh = (cuda:0,) * S``) the records half runs S times.
+the single-card one voxel for voxel.  Both window engines re-derive the
+candidates on every shard in both packages; on one card (``mesh =
+(cuda:0,) * S``) their records half runs S times.
+
+Owner blocks.  The hash engine's window-1 step computes each ping's
+records once, as JAX's per-ping step does (it backprojects and packs once
+and all-gathers the packed stream): ``frame_owner_blocks`` backprojects,
+packs and dedups the ping on ``mesh[0]``'s device with its records
+grouped by owner, and shard ``s`` takes its block, copied to ``mesh[s]``
+where that is another device (the counterpart of the all-gather).  Each
+block holds the records ``owned_frame_records`` gives that shard, in the
+same order.
 
 Commit.  A step (a ping or a window) is all-or-nothing across the shards:
 every apply is out of place, and its result commits only when no shard
@@ -73,7 +82,11 @@ from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     backproject_ping,
     tables_for_images,
 )
-from sonar_3d_reconstruction_tpu_torch.ops.dedup import UniqueRecords, dedup_frame
+from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
+    UniqueRecords,
+    dedup_frame,
+    dedup_frame_grouped,
+)
 from sonar_3d_reconstruction_tpu_torch.ops.packing import (
     EMPTY_HI,
     U32,
@@ -150,6 +163,42 @@ def owner_shard_brick(
     return mix2(brick_lo, hi) % n_shards
 
 
+def _frame_candidates(
+    image: torch.Tensor,
+    T: torch.Tensor,
+    n_shards: int,
+    *,
+    tables: FanTables,
+    cfg: MapperConfig,
+    dtype: torch.dtype,
+    brick_bits: int,
+):
+    """One ping's packed candidates on the image's device: (hi, lo,
+    occupied flags, the valid in-range lanes, each lane's owner shard, the
+    full frame's FrameAux).
+
+    Keys are voxel codes (``brick_bits`` 0, the hash engine) or brick
+    codes.  The bounds and the range check cover the full frame (every
+    shard carries the same global bounds, the reference's
+    3d_mapper.py:560)."""
+    cand = backproject_ping(image, T, tables, cfg, dtype=dtype)
+    res = torch.full((), cfg.voxel_resolution, dtype=dtype,
+                     device=image.device)
+    # a true division, as in the reference's floor(p / res) keying
+    keys = torch.floor(cand["points"] / res).to(torch.int32)
+    if brick_bits:
+        hi, lo, in_range = pack_brick_keys(keys, brick_bits)
+        owner = owner_shard_brick(hi, lo, brick_bits, n_shards)
+    else:
+        hi, lo, in_range = pack_keys(keys)
+        owner = owner_shard(hi, lo, n_shards)
+    valid = cand["valid"]
+    range_fail = (valid & ~in_range).any()
+    valid = valid & in_range
+    return (hi, lo, cand["is_occupied"], valid, owner,
+            frame_aux(keys, valid, range_fail, res))
+
+
 def owned_frame_records(
     image: torch.Tensor,
     T: torch.Tensor,
@@ -164,28 +213,78 @@ def owned_frame_records(
     """One ping -> (the unique records of the voxels ``shard`` owns, the
     frame's FrameAux), on the image's device.
 
-    Keys are voxel codes (``brick_bits`` 0, the hash engine) or brick
-    codes.  The bounds and the range check cover the full frame (every
-    shard carries the same global bounds, the reference's
-    3d_mapper.py:560); ``n_valid`` counts the owned candidates."""
-    device = image.device
-    cand = backproject_ping(image, T, tables, cfg, dtype=dtype)
-    res = torch.full((), cfg.voxel_resolution, dtype=dtype, device=device)
-    # a true division, as in the reference's floor(p / res) keying
-    keys = torch.floor(cand["points"] / res).to(torch.int32)
-    if brick_bits:
-        hi, lo, in_range = pack_brick_keys(keys, brick_bits)
-        owner = owner_shard_brick(hi, lo, brick_bits, n_shards)
-    else:
-        hi, lo, in_range = pack_keys(keys)
-        owner = owner_shard(hi, lo, n_shards)
-    valid = cand["valid"]
-    range_fail = (valid & ~in_range).any()
-    valid = valid & in_range
+    Keys are voxel codes (``brick_bits`` 0) or brick codes; the aux is the
+    full frame's (``_frame_candidates``) but for ``n_valid``, which counts
+    the owned candidates."""
+    hi, lo, occ, valid, owner, aux = _frame_candidates(
+        image, T, n_shards, tables=tables, cfg=cfg, dtype=dtype,
+        brick_bits=brick_bits)
     active = valid & (owner == shard)
-    rec = dedup_frame(hi, lo, cand["is_occupied"], active, brick=brick_bits > 0)
-    aux = frame_aux(keys, valid, range_fail, res)
+    rec = dedup_frame(hi, lo, occ, active, brick=brick_bits > 0)
     return rec, aux._replace(n_valid=active.sum())
+
+
+class OwnerBlocks(NamedTuple):
+    """One ping's unique records grouped by owner shard (voxel codes)."""
+
+    rec: UniqueRecords     # (N,) in (owner, code) order, unused lanes last
+    starts: torch.Tensor   # (S+1,) int64 first lane of each owner's block;
+                           # starts[S] is the records' count
+    counts: torch.Tensor   # (S,) int64 valid candidates each owner owns
+    aux: FrameAux          # the full frame's (n_valid: every candidate)
+
+
+def frame_owner_blocks(
+    image: torch.Tensor,
+    T: torch.Tensor,
+    n_shards: int,
+    *,
+    tables: FanTables,
+    cfg: MapperConfig,
+    dtype: torch.dtype,
+) -> OwnerBlocks:
+    """One ping -> its voxel-code records grouped by owner, on the image's
+    device: one backprojection and one dedup for every shard.
+
+    Shard ``s``'s block, lanes ``[starts[s], starts[s+1])``, holds the
+    records ``owned_frame_records(..., shard=s)`` gives, in the same (code)
+    order: the grouped dedup counts each voxel over its key segment, which
+    lies within one owner, and then moves whole records by a stable sort
+    on their owner."""
+    device = image.device
+    hi, lo, occ, valid, owner, aux = _frame_candidates(
+        image, T, n_shards, tables=tables, cfg=cfg, dtype=dtype,
+        brick_bits=0)
+    rec, group = dedup_frame_grouped(hi, lo, occ, valid, owner, n_shards,
+                                     brick=False)
+    # records are sorted by owner, unused lanes (group S) last
+    starts = torch.searchsorted(
+        group, torch.arange(n_shards + 1, device=device))
+    counts = torch.zeros(n_shards, dtype=torch.int64, device=device)
+    counts.index_add_(0, owner, valid.to(torch.int64))
+    return OwnerBlocks(rec, starts, counts, aux)
+
+
+def owner_block(
+    blocks: OwnerBlocks, shard: int, starts, device: torch.device
+) -> Tuple[UniqueRecords, FrameAux]:
+    """Shard ``shard``'s records of one ping (``frame_owner_blocks``) and
+    the frame's aux with its owned ``n_valid``, on ``device`` (copied only
+    where that is another device).  ``starts`` are ``blocks.starts`` on
+    the host; an empty block is one ``EMPTY_HI`` lane."""
+    a, b = starts[shard], starts[shard + 1]
+    rec = blocks.rec
+    if b > a:
+        lanes = [x[a:b] for x in rec[:4]]
+    else:
+        src = rec.hi.device
+        lanes = [torch.full((1,), EMPTY_HI, dtype=torch.int64, device=src)] * 2
+        lanes += [torch.zeros(1, dtype=torch.int64, device=src)] * 2
+    n_unique = blocks.starts[shard + 1] - blocks.starts[shard]
+    aux = blocks.aux._replace(n_valid=blocks.counts[shard])
+    return (UniqueRecords(*(x.to(device) for x in lanes),
+                          n_unique.to(device)),
+            FrameAux(*(x.to(device) for x in aux)))
 
 
 def poison(state):
@@ -462,19 +561,51 @@ def init_sharded_hash_grid(
     ))
 
 
-def _apply_ping(shard, recs, auxs, cfg):
-    """``apply_frame_records`` on a step of one frame."""
-    return apply_frame_records(shard, UniqueRecords(*(x[0] for x in recs)),
-                               FrameAux(*(x[0] for x in auxs)), cfg)
+def owner_block_step(
+    state: ShardedHashState,
+    frames: range,
+    *,
+    images: torch.Tensor,
+    transforms: torch.Tensor,
+    tables: FanTables,
+    cfg: MapperConfig,
+    dtype: torch.dtype,
+):
+    """The hash engine's window-1 step: the ping's records once
+    (``frame_owner_blocks``, on the device of ``images`` and
+    ``transforms``: ``mesh[0]``), one host read of where its owner blocks
+    lie, then each shard's ``apply_frame_records`` of its block and the
+    all-or-nothing commit.  Returns (state, the ping's host stats)."""
+    (i,) = frames
+    blocks = frame_owner_blocks(images[i], transforms[i], state.n_shards,
+                                tables=tables, cfg=cfg, dtype=dtype)
+    starts = blocks.starts.tolist()
+    results = []
+    for s, (shard, dev) in enumerate(zip(state.shards, state.mesh)):
+        rec, aux = owner_block(blocks, s, starts, dev)
+        new, win = apply_frame_records(shard, rec, aux, cfg)
+        results.append((new, host_stats(win)))
+    stats = {k: np.zeros(1, dt) for k, dt in SHARDED_HASH_STAT_DTYPES.items()}
+    return commit(state, results, stats, ("batch_n_unique",)), stats
 
 
 def _hash_step(state, images, transforms, tables, cfg, dtype, window):
-    """The hash engine's ``step(state, frames)`` over these pings: one
-    ``apply_frame_records`` a ping at window 1, else one
-    ``apply_records_batched`` a window."""
+    """The hash engine's ``step(state, frames)`` over these pings: at
+    window 1 ``owner_block_step`` (each ping's records once, on
+    ``mesh[0]``), else ``replicated_step`` with one
+    ``apply_records_batched`` a window (every shard derives its records,
+    as in JAX's window engine)."""
+    if window == 1:
+        src = state.mesh[:1]
+        return functools.partial(
+            owner_block_step,
+            images=on_mesh(images, src)[src[0]],
+            transforms=on_mesh(transforms, src, dtype)[src[0]],
+            tables=tables, cfg=cfg, dtype=dtype,
+        )
     return functools.partial(
         replicated_step,
-        apply=_apply_ping if window == 1 else apply_records_batched,
+        apply=apply_records_batched,
         brick_bits=0, stat_dtypes=SHARDED_HASH_STAT_DTYPES,
         sizes=("batch_n_unique",),
         images_dev=on_mesh(images, state.mesh),

@@ -44,6 +44,7 @@ import torch
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
 from sonar_3d_reconstruction_tpu_torch.device import require_cuda, to_device
 from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
+from sonar_3d_reconstruction_tpu_torch.grid import check_state_backend
 from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     BrickGridState,
     apply_brick_records_compact,
@@ -110,23 +111,9 @@ DEFAULT_HASH_CAPACITY = 1 << 20
 # table doublings one sequence may need before mapping gives up
 MAX_GROW_RETRIES = 12
 
-_STATE_TYPES = {"brick": BrickGridState, "hash": HashGridState,
-                "dense": DenseGridState}
+_BACKENDS = ("brick", "hash", "dense")
 
 MapState = Union[BrickGridState, HashGridState, DenseGridState]
-
-
-def check_state_backend(state, backend: str) -> None:
-    """ValueError when a resumed map ``state`` is not of ``backend``'s type
-    (the records' key layout follows the backend, so a mismatch would
-    write voxels through the wrong key interpretation)."""
-    expected = _STATE_TYPES[backend]
-    if state is not None and not isinstance(state, expected):
-        raise ValueError(
-            f"map state {type(state).__name__} does not match "
-            f"backend={backend!r} (expected {expected.__name__}); pass the "
-            f"matching backend= when resuming a saved map"
-        )
 
 
 def _window_records(
@@ -321,7 +308,7 @@ def map_ping_sequence(
     the JAX package does.
     """
     cfg = cfg or MapperConfig()
-    if backend not in _STATE_TYPES:
+    if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use 'brick', "
                          f"'hash' or 'dense'")
     check_state_backend(state, backend)
