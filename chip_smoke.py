@@ -8,7 +8,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    ``build/kernels/`` at first use, one nvcc per source, all started
    together, and the card's name and power limit are printed as
    ``nvidia-smi`` reports them.
-2. main path, full size: the bench survey (``bench.make_inputs``, 256
+2. main path, full size: the bench survey (the port's
+   ``sonar_3d_reconstruction_tpu_torch.bench.make_inputs``, 256
    pings of 500x512 at the library-default 5 cm voxels) through
    ``pipeline.map_ping_sequence(backend="brick", window=16)`` in float32,
    once cold and once warm; the warm run's K1 launch count must be
@@ -202,6 +203,22 @@ Phases (each prints its own line; any failure raises and exits non-zero):
       T_mount)`` in float64 for the survey's poses on the card: within
       POSE_TOL of the host's ``batched_sonar_to_world``, and bit-equal
       (with ``rotations_from_quaternions``) to the CPU's.
+12. the batched records half on the card (``records_batch``,
+   ``window_group``): phase 2's survey (window 16, float32, the tables
+   built once) in both dense modes at every records_batch of
+   RECORDS_BATCHES and window_group of WINDOW_GROUPS: map state and every
+   per-ping stat equal phase 2's (2b's for the raw mode) bit for bit; K1
+   (or K1-raw) launches and peak memory of one run, kernel launches a
+   ping and stream syncs a run of a profiled run (torch.profiler's
+   ``cudaLaunchKernel`` and ``cudaStreamSynchronize`` events), and the
+   median wall of BATCH_RUNS runs in alternating order; the dedup's first
+   sort over one window's (16, N) words as one 2-D sort (the port's
+   form), 16 row sorts and one flat sort with the frame folded above the
+   word, device ms each;
+   BATCH_F64_PINGS float64 pings at records_batch 16 and window_group 4
+   in windows of 16 and of 4, card against CPU (stats and every state
+   array bit-equal); ``python -m sonar_3d_reconstruction_tpu_torch bench``
+   at its defaults in a subprocess, its JSON line parsed and printed.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -474,7 +491,7 @@ def phase_main_path(dev, dense_mode):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
         extract_occupied_brick,
@@ -1052,7 +1069,7 @@ def _entry_selftest(dev, smi):
     card's mapper, ms per ping)."""
     import numpy as np
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.cli import selftest_pings
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
@@ -1142,9 +1159,10 @@ def _entry_sequence_and_reads(dev, smi, main_voxels):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
         touched_voxels_brick,
     )
     from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
@@ -1320,7 +1338,7 @@ NODE_PHASE = {"brick": "6f", "hash": "7d", "dense": "8c",
 def _survey_msgs(n):
     """The first n pings of phase 2's survey as (ImageMsg, OdometryMsg)
     pairs stamped 1000.0 + 0.1 i."""
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.io.bag import ImageMsg, OdometryMsg
 
@@ -1390,6 +1408,7 @@ def _stream_main(dev, smi, msgs, main_voxels):
     import numpy as np
 
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
         touched_voxels_brick,
     )
 
@@ -1537,6 +1556,7 @@ def _stream_float64(dev, smi, msgs):
     import torch
 
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
         touched_voxels_brick,
     )
 
@@ -1959,7 +1979,7 @@ def _hash_main(dev, smi, main_voxels, main_stats):
     its wall for phase 10)."""
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.pipeline import (
         DEFAULT_HASH_CAPACITY,
@@ -2023,7 +2043,7 @@ def _wide_keys(dev, smi):
     path, facts, the brick map's voxels sorted by key)."""
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.geometry import (
         batched_sonar_to_world,
@@ -2111,7 +2131,7 @@ def _hash_entry_points(dev, smi, hash_state, brick_cli_voxels):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
         load_map,
@@ -2269,7 +2289,7 @@ def _dense_main(dev, smi, main_voxels, main_stats):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.grid.dense import (
         default_dense_spec,
@@ -2343,7 +2363,7 @@ def _dense_float64(dev, smi):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.grid.dense import (
         DenseGridSpec,
@@ -2391,7 +2411,7 @@ def _dense_entry_points(dev, smi):
     with map_backend "dense".  Returns facts."""
     import numpy as np
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.cli import selftest_pings
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
@@ -2446,7 +2466,7 @@ def _multihost(dev, smi, main_voxels, main_stats, hash_voxels):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.parallel import (
         map_ping_sequence_multihost,
@@ -2563,7 +2583,7 @@ def _sharded_main(dev, smi, main_voxels, main_stats):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.parallel import (
         map_ping_sequence_sharded_frames,
@@ -2628,7 +2648,7 @@ def _sharded_wide(dev, smi, wide_voxels):
     widest shard window of the run.  Returns (K1 launches, facts)."""
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
     from sonar_3d_reconstruction_tpu_torch.parallel import (
@@ -2682,9 +2702,10 @@ def _sharded_entry_points(dev, smi, main_voxels, brick_cli_voxels):
     bag.  Returns ({path: K1 launches}, facts)."""
     import numpy as np
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
         touched_voxels_brick,
     )
     from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
@@ -2843,7 +2864,7 @@ def _sharded_float64(dev, smi):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
         _fan_trig,
@@ -2976,6 +2997,7 @@ def _check_owners(state, what):
     import torch
 
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
         touched_voxels_brick,
     )
     from sonar_3d_reconstruction_tpu_torch.grid.hash import touched_voxels_hash
@@ -3018,7 +3040,7 @@ def _replicated_hash(dev, smi, hash_voxels, hash_runs):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.io.checkpoint import (
         load_map,
@@ -3123,7 +3145,7 @@ def _replicated_brick(dev, smi, main_voxels, main_stats):
     shard window.  Returns (K1 launches, facts)."""
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
     from sonar_3d_reconstruction_tpu_torch.parallel import (
@@ -3188,7 +3210,7 @@ def _replicated_float64(dev, smi):
     import numpy as np
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.parallel import (
         map_ping_sequence_sharded,
@@ -3258,7 +3280,7 @@ def _replicated_trace(dev, smi):
 
     import torch
 
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.parallel import (
         map_ping_sequence_sharded,
@@ -3527,7 +3549,7 @@ def phase_owner_blocks_raw_poses(dev, smi, main_voxels, main_stats):
     devices, 11b K1-raw through the frame-parallel engine, 11c the pose
     functions on the card.  Returns ({path: K1-raw launches}, measured
     numbers)."""
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
 
     t0 = time.perf_counter()
@@ -3542,6 +3564,261 @@ def phase_owner_blocks_raw_poses(dev, smi, main_voxels, main_stats):
             dict(owner_blocks=owner_blocks, sharded_raw=raw, poses=poses))
 
 
+BATCH_PINGS = 256     # phase 12: phase 2's survey
+RECORDS_BATCHES = (1, 4, 16)   # phase 12: records_batch settings
+WINDOW_GROUPS = (1, 4)         # phase 12: window_group settings
+BATCH_RUNS = 5        # phase 12: alternating timed runs of each setting
+BATCH_F64_PINGS = 16  # phase 12: float64 pings card vs CPU
+SORT_REPS = 20        # phase 12: sorts timed a form
+
+
+def _launches_and_syncs(fn):
+    """(fn(), kernel launches, stream synchronisations) of one call, as
+    the host issued them (``cudaLaunchKernel`` and
+    ``cudaStreamSynchronize`` events of torch.profiler, CUDA runtime
+    only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    # the raw event list: key_averages() parses every event in Python,
+    # seconds for a run's ~60,000 launches
+    raw = getattr(prof.profiler, "kineto_results", None)
+    try:
+        names = [e.name() for e in raw.events()]
+    except AttributeError:
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)]
+    launches = sum("LaunchKernel" in n for n in names)
+    syncs = sum("StreamSynchronize" in n for n in names)
+    if not launches:
+        raise AssertionError("torch.profiler recorded no kernel launch")
+    return out, launches, syncs
+
+
+def _sort_forms(dev, images, positions, quats, cfg, tables):
+    """Device ms of the dedup's first sort over one window's (16, N)
+    compact sort words in three forms: one 2-D ``torch.sort(dim=-1)`` (the
+    port's), 16 row sorts, and one flat sort of the 16 N lanes with the
+    frame folded above the 32-bit word; every form's values equal."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.geometry import (
+        batched_sonar_to_world,
+    )
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        backproject_ping,
+    )
+    from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+        EMPTY32,
+        compute_window_boxes,
+        pack_box_keys,
+    )
+
+    T = batched_sonar_to_world(positions[:16], quats[:16], cfg)
+    mins, bits = compute_window_boxes(T[:, :3, 3], cfg.max_range,
+                                      cfg.voxel_resolution, 16, 2, 4)
+    cand = backproject_ping(torch.as_tensor(images[:16], device=dev),
+                            torch.as_tensor(T, device=dev).float(), tables,
+                            cfg)
+    res = torch.full((), cfg.voxel_resolution, device=dev)
+    keys = torch.floor(cand["points"] / res).to(torch.int32)
+    key, ok = pack_box_keys(keys, torch.as_tensor(mins[0], device=dev), bits, 2)
+    x = torch.where(cand["valid"] & ok,
+                    (key << 1) | cand["is_occupied"].to(torch.int64), EMPTY32)
+    row = torch.arange(x.shape[0], device=dev)[:, None]
+
+    def folded():
+        s, idx = torch.sort(((row << 32) | x).reshape(-1))
+        return (s.reshape(x.shape) & 0xFFFFFFFF,
+                idx.reshape(x.shape) - row * x.shape[1])
+
+    forms = {
+        "2-D sort(dim=-1)": lambda: torch.sort(x, dim=-1),
+        "16 row sorts": lambda: [torch.sort(r) for r in x],
+        "folded flat sort": folded,
+    }
+    want = torch.sort(x, dim=-1).values
+    for name, fn in forms.items():
+        got = fn()
+        got = torch.stack([v for v, _ in got]) if isinstance(got, list) else got[0]
+        if not torch.equal(got, want):
+            raise AssertionError(f"sort form {name} gives other values")
+    ms = {name: _time_ms(fn, reps=SORT_REPS) for name, fn in forms.items()}
+    ms["16 row sorts, values only"] = _time_ms(
+        lambda: [torch.sort(r).values for r in x], reps=SORT_REPS)
+    return tuple(x.shape), ms
+
+
+def _batch_float64(dev, smi, images, positions, quats, cfg):
+    """BATCH_F64_PINGS float64 pings at records_batch 16 and window_group 4
+    in windows of 16 and of 4, card against CPU: stats and every state
+    array bit-equal.  Returns facts."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
+    )
+    from sonar_3d_reconstruction_tpu_torch.pipeline import (
+        STAT_DTYPES,
+        map_ping_sequence,
+    )
+
+    n = BATCH_F64_PINGS
+    facts = {}
+    for window in (16, 4):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            (st, stats), wall = _wall(lambda: map_ping_sequence(
+                images[:n], positions[:n], quats[:n], cfg, device=d,
+                dtype=torch.float64, window=window, records_batch=16,
+                window_group=4))
+            out.append((brick_state_to_numpy(st), stats, wall))
+        (g_st, g_stats, g_s), (c_st, c_stats, c_s) = out
+        _same_stats(g_stats, c_stats, f"12 float64 window {window}",
+                    keys=tuple(STAT_DTYPES))
+        for k in STATE_FIELDS:
+            if not (g_st[k].shape == c_st[k].shape
+                    and (g_st[k] == c_st[k]).all()):
+                raise AssertionError(f"12 float64 window {window}: state {k} "
+                                     f"differs card vs CPU")
+        facts[f"window_{window}"] = dict(card_s=g_s, cpu_s=c_s,
+                                         used=int(g_st["used"]))
+        print(f"phase 12 float64: {n} pings, records_batch 16, window_group "
+              f"4, window {window}: card {g_s:.3f} s, CPU {c_s:.3f} s; stats "
+              f"and every state array bit-equal ({int(g_st['used'])} voxels) "
+              f"[{smi}]", flush=True)
+    return facts
+
+
+def _bench_cli(smi):
+    """``python -m sonar_3d_reconstruction_tpu_torch bench`` at its defaults
+    in a subprocess: exit 0 and one JSON line, parsed and returned."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sonar_3d_reconstruction_tpu_torch", "bench"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench exited {proc.returncode} with "
+                             f"{len(lines)} lines: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads(lines[0])
+    if "error" in got or got["value"] <= 0 or not got["detail"]["k1_launches"]:
+        raise AssertionError(f"bench: {lines[0]}")
+    print(f"phase 12 bench ({time.perf_counter() - t0:.1f} s in a "
+          f"subprocess) [{smi}]:", flush=True)
+    print(lines[0], flush=True)
+    return got
+
+
+def phase_records_batch(dev, smi, main_np, main_stats, raw_stats):
+    """Phase 12: the survey at each records_batch x window_group in both
+    dense modes (map and per-ping stats equal phase 2's / 2b's bit for
+    bit), timed in BATCH_RUNS alternating rounds, with launches a ping,
+    syncs a run, peak memory and K1 launches; the dedup sort's three
+    forms; float64 card vs CPU; the bench command.  Returns ({K1 form:
+    {path: launches}}, facts)."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
+    )
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        tables_for_images,
+    )
+    from sonar_3d_reconstruction_tpu_torch.pipeline import (
+        STAT_DTYPES,
+        map_ping_sequence,
+    )
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
+
+    t_phase = time.perf_counter()
+    cfg = MapperConfig()
+    n_pings, window = BATCH_PINGS, 16
+    images, positions, quats = make_inputs(cfg, n_pings)
+    tables = tables_for_images(images, cfg)
+    settings = [(mode, rb, wg) for mode in ("pallas", "pallas-raw")
+                for rb in RECORDS_BATCHES for wg in WINDOW_GROUPS]
+
+    def run(mode, rb, wg):
+        return map_ping_sequence(
+            images, positions, quats, cfg, device=dev, window=window,
+            dtype=torch.float32, dense_mode=mode, records_batch=rb,
+            window_group=wg, tables=tables)
+
+    def name(mode, rb, wg):
+        return f"map_ping_sequence {mode} rb={rb} wg={wg}"
+
+    facts, launches = {}, {"bin_apply": {}, "bin_apply_raw": {}}
+    for s in settings:
+        mode, rb, wg = s
+        raw = mode == "pallas-raw"
+        torch.cuda.reset_peak_memory_stats(dev)
+        (st, stats), n = _k1_launches_of(lambda: run(*s), raw=raw,
+                                         what=name(*s))
+        other = bin_apply.launches if raw else bin_apply.raw_launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        if other:
+            raise AssertionError(f"{name(*s)} launched the other K1 form")
+        _same_stats(stats, raw_stats if raw else main_stats, name(*s),
+                    keys=tuple(STAT_DTYPES))
+        got = brick_state_to_numpy(st)
+        for k in STATE_FIELDS:
+            if not (got[k].shape == main_np[k].shape
+                    and (got[k] == main_np[k]).all()):
+                raise AssertionError(f"{name(*s)}: state {k} differs from "
+                                     f"phase 2's")
+        launches["bin_apply_raw" if raw else "bin_apply"][name(*s)] = n
+        facts[name(*s)] = dict(k1_launches=n, peak_mib=peak / 2**20)
+    del st
+    t_step = time.perf_counter()
+    for s in settings:
+        _, n_launch, n_sync = _launches_and_syncs(lambda: run(*s))
+        facts[name(*s)].update(launches_per_ping=n_launch / n_pings,
+                               syncs_per_run=n_sync)
+    profile_s = time.perf_counter() - t_step
+    t_step = time.perf_counter()
+    walls = {s: [] for s in settings}
+    for r in range(BATCH_RUNS):
+        for s in (settings if r % 2 == 0 else settings[::-1]):
+            walls[s].append(_wall(lambda: run(*s))[1])
+    walls_s = time.perf_counter() - t_step
+    for s in settings:
+        q1, med, q3 = np.percentile(walls[s], [25, 50, 75])
+        f = facts[name(*s)]
+        f.update(wall_s=med, wall_q1_s=q1, wall_q3_s=q3,
+                 pings_per_sec=n_pings / med)
+        print(f"phase 12 {s[0]} records_batch {s[1]} window_group {s[2]}: "
+              f"wall {med:.3f} s (q1-q3 {q1:.3f}-{q3:.3f}, {BATCH_RUNS} "
+              f"alternating runs), {f['pings_per_sec']:.1f} pings/s; "
+              f"{f['launches_per_ping']:.1f} kernel launches a ping, "
+              f"{f['syncs_per_run']} stream syncs a run; peak memory "
+              f"{f['peak_mib']:.1f} MiB; "
+              f"{'bin_apply_raw' if s[0] == 'pallas-raw' else 'bin_apply'} "
+              f"launches {f['k1_launches']}; map and per-ping stats == phase "
+              f"{'2b' if s[0] == 'pallas-raw' else '2'}'s [{smi}]",
+              flush=True)
+    shape, sort_ms = _sort_forms(dev, images, positions, quats, cfg, tables)
+    facts["sort_forms"] = dict(shape=shape, ms=sort_ms)
+    print(f"phase 12 dedup sort of one window's {shape} compact words "
+          f"(int64), device ms a call (CUDA events, {SORT_REPS} calls): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sort_ms.items())
+          + f" [{smi}]", flush=True)
+    facts["float64"] = _batch_float64(dev, smi, images, positions, quats, cfg)
+    facts["bench"] = _bench_cli(smi)
+    facts["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 12 records batches and window groups: "
+          f"{facts['phase_s']:.1f} s (profiled runs {profile_s:.1f} s, "
+          f"timed runs {walls_s:.1f} s)", flush=True)
+    return launches, facts
+
+
 def main() -> int:
     import torch
 
@@ -3550,6 +3827,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
         touched_voxels_brick,
     )
 
@@ -3559,7 +3837,8 @@ def main() -> int:
         dev, "pallas-raw")
     check_raw_equals_dedup(dedup, raw)
     main_voxels = touched_voxels_brick(dedup[0])
-    main_stats = dedup[1]
+    main_stats, raw_stats = dedup[1], raw[1]
+    main_np = brick_state_to_numpy(dedup[0])
     del dedup, raw
     k1 = _k1_form(dev, k1_shape, k1_real, raw=False)
     k1_raw = _k1_form(dev, raw_shape, raw_real, raw=True)
@@ -3584,6 +3863,8 @@ def main() -> int:
     del hash_voxels, hash_runs
     raw_sharded_launches, late_checks = phase_owner_blocks_raw_poses(
         dev, smi, main_voxels, main_stats)
+    batch_launches, batched = phase_records_batch(
+        dev, smi, main_np, main_stats, raw_stats)
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -3593,14 +3874,16 @@ def main() -> int:
         ("bin_apply", bin_src, bin_tpu, k1_launches,
          dict(main=k1_launches, **entry_launches,
               **stream_launches["bin_apply"], **wide_launches,
-              **late_launches, **sharded_launches, **replicated_launches),
+              **late_launches, **sharded_launches, **replicated_launches,
+              **batch_launches["bin_apply"]),
          dict(k1, entry_points=entry, stream=stream, **hash_wide,
               **dense_fold, **sharded, **replicated,
               owner_blocks=late_checks["owner_blocks"],
-              poses=late_checks["poses"])),
+              poses=late_checks["poses"], records_batch=batched)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
-          **stream_launches["bin_apply_raw"], **raw_sharded_launches},
+          **stream_launches["bin_apply_raw"], **raw_sharded_launches,
+          **batch_launches["bin_apply_raw"]},
          dict(k1_raw, sharded_raw=late_checks["sharded_raw"])),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",

@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch port (port of
-``sonar_3d_reconstruction_tpu.cli`` without ``tune`` and ``bench``).
+``sonar_3d_reconstruction_tpu.cli`` without ``tune``).
 
   python -m sonar_3d_reconstruction_tpu_torch selftest [--device D]
       The reference library self-test scenario (scripts/3d_mapper.py:653-683):
@@ -33,6 +33,11 @@
       [--device D]
       Occupancy probability at world points from a saved snapshot
       (reference SimpleOctree.get_probability: never-updated voxels 0.5).
+
+  python -m sonar_3d_reconstruction_tpu_torch bench [--device D]
+      The headline benchmark (``sonar_3d_reconstruction_tpu_torch.bench``:
+      the 256-ping survey at 5 cm, window 16; BENCH_* environment knobs):
+      prints exactly one JSON line, an error line on a failure (exit 1).
 
 Commands that map or query run on ``--device``: the first CUDA device by
 default, which they require (exit code 1 without one); ``--device cpu``
@@ -319,6 +324,12 @@ def cmd_query(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_bench(args: argparse.Namespace) -> int:
+    from sonar_3d_reconstruction_tpu_torch import bench
+
+    return bench.main([] if args.device is None else ["--device", args.device])
+
+
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--device", default=None, metavar="DEVICE",
@@ -397,8 +408,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--rate", type=float, default=2.0)
     p.add_argument("--seed", type=int, default=0)
 
+    p = sub.add_parser("bench", help="headline benchmark (one JSON line)")
+    _add_device(p)
+
     args = parser.parse_args(argv)
     return {
+        "bench": cmd_bench,
         "selftest": cmd_selftest,
         "map-bag": cmd_map_bag,
         "make-bag": cmd_make_bag,

@@ -329,10 +329,15 @@ def _local_points(r, cos_v, sin_v, cos_b, sin_b):
 
 
 def _to_world(x, y, z, T):
-    """Explicit affine transform, term by term like the JAX function."""
-    wx = T[0, 0] * x + T[0, 1] * y + T[0, 2] * z + T[0, 3]
-    wy = T[1, 0] * x + T[1, 1] * y + T[1, 2] * z + T[1, 3]
-    wz = T[2, 0] * x + T[2, 1] * y + T[2, 2] * z + T[2, 3]
+    """Explicit affine transform, term by term like the JAX function, with
+    ``T`` (F, 4, 4) broadcast over the points' leading frame axis."""
+
+    def t(i, j):
+        return T[:, i, j].reshape((-1,) + (1,) * (x.dim() - 1))
+
+    wx = t(0, 0) * x + t(0, 1) * y + t(0, 2) * z + t(0, 3)
+    wy = t(1, 0) * x + t(1, 1) * y + t(1, 2) * z + t(1, 3)
+    wz = t(2, 0) * x + t(2, 1) * y + t(2, 2) * z + t(2, 3)
     return torch.stack([wx, wy, wz], dim=-1)
 
 
@@ -343,21 +348,29 @@ def backproject_ping(
     cfg: MapperConfig,
     dtype: torch.dtype = torch.float32,
 ) -> Dict[str, torch.Tensor]:
-    """One ping -> flattened candidate emissions (static shape).
+    """One ping, or a batch of pings, -> flattened candidate emissions
+    (static shape).
 
     ``polar_image`` (range_bins, bearing_bins), rows range and columns
-    bearing; ``T_sonar_to_world`` (4, 4).  Both on the device the work runs
-    on.  Returns points (N, 3), log_odds (N,), is_occupied (N,) bool and
-    valid (N,) bool over N = n_rays*(L_free + W*VO) candidates.
+    bearing, with ``T_sonar_to_world`` (4, 4); or (F, range_bins,
+    bearing_bins) with (F, 4, 4) for F pings at once.  Both on the device
+    the work runs on.  Returns points (N, 3), log_odds (N,), is_occupied
+    (N,) bool and valid (N,) bool over N = n_rays*(L_free + W*VO)
+    candidates, each with a leading (F,) axis for a batch.  A batch runs
+    the single ping's ops element for element, so each of its frames is
+    bit-equal to that ping backprojected alone.
     """
+    batched = polar_image.dim() == 3
+    images = polar_image if batched else polar_image[None]
     R, B = tables.range_bins, tables.bearing_bins
-    if tuple(polar_image.shape) != (R, B):
+    if tuple(images.shape[1:]) != (R, B):
         raise ValueError(
             f"image shape {tuple(polar_image.shape)} != tables {(R, B)}"
         )
-    device = polar_image.device
+    device = images.device
     tab = _device_tables(tables, device, dtype)
     W = tables.effective_window(cfg.occupied_window)
+    F = images.shape[0]
 
     def const(x):
         return torch.full((), x, dtype=dtype, device=device)
@@ -365,81 +378,86 @@ def backproject_ping(
     cos_b = tab["cos_b"][:, None, None]
     sin_b = tab["sin_b"][:, None, None]
 
-    # (n_rays, R) intensity profiles, strict > hit mask; first hit or R
-    profiles = polar_image[:, tab["ray_indices"]].T
+    # (F, n_rays, R) intensity profiles, strict > hit mask; first hit or R
+    # (argmax returns the first maximum)
+    profiles = images[:, :, tab["ray_indices"]].transpose(1, 2)
     hits = profiles > cfg.intensity_threshold
-    any_hit = hits.any(dim=1)
+    any_hit = hits.any(dim=-1)
     first_hit = torch.where(
-        any_hit, torch.argmax(hits.to(torch.uint8), dim=1), R
+        any_hit, torch.argmax(hits.to(torch.uint8), dim=-1), R
     )
 
-    T = T_sonar_to_world.to(device=device, dtype=dtype)
+    T = T_sonar_to_world.to(device=device, dtype=dtype).reshape(F, 4, 4)
 
-    # ---- free-space candidates: (n_rays, L) flat lattice
+    # ---- free-space candidates: (F, n_rays, L) flat lattice
     fx, fy, fz = _local_points(
-        tab["free_r"][None, :],
-        tab["free_cos_v"][None],
-        tab["free_sin_v"][None],
-        cos_b[:, :, 0],
-        sin_b[:, :, 0],
+        tab["free_r"][None, None, :],
+        tab["free_cos_v"][None, None],
+        tab["free_sin_v"][None, None],
+        cos_b[None, :, :, 0],
+        sin_b[None, :, :, 0],
     )
     free_world = _to_world(fx, fy, fz, T)
     free_valid = (
-        (tab["free_idx"][None, :] < first_hit[:, None])
-        & tab["free_mask"][None]
+        (tab["free_idx"] < first_hit[..., None]) & tab["free_mask"]
     )
 
     # ---- occupied candidates: window bins first_hit + w.  One
-    # (n_rays, W) gather of where(hit, occ_nv[bin], 0) serves both the
+    # (F, n_rays, W) gather of where(hit, occ_nv[bin], 0) serves both the
     # intensity gate and the exact fan count (0 = not a hit, column R =
     # past the image).
     w_off = torch.arange(W, device=device)
-    occ_bin = torch.clamp(first_hit[:, None] + w_off[None, :], max=R)
+    occ_bin = torch.clamp(first_hit[..., None] + w_off, max=R)
     hit_pad = torch.cat(
-        [hits, torch.zeros((hits.shape[0], 1), dtype=torch.bool, device=device)],
-        dim=1,
+        [hits, torch.zeros(hits.shape[:-1] + (1,), dtype=torch.bool,
+                           device=device)],
+        dim=-1,
     )
-    hit_nv_tab = torch.where(hit_pad, tab["occ_nv"][None, :], 0)
-    hit_nv = torch.gather(hit_nv_tab, 1, occ_bin)
+    hit_nv_tab = torch.where(hit_pad, tab["occ_nv"], 0)
+    hit_nv = torch.gather(hit_nv_tab, -1, occ_bin)
     bin_hit = hit_nv > 0
-    occ_r = occ_bin.to(dtype)[:, :, None] * const(cfg.max_range / R)
+    occ_r = occ_bin.to(dtype)[..., None] * const(cfg.max_range / R)
     # max(, 1) only guards the masked not-hit lanes' division
     nv = torch.clamp(hit_nv, min=1)
     cos_t, sin_t, steps = _fan_trig(tables, device, dtype,
                                     cfg.half_aperture_rad)
     occ_cos_v = cos_t[nv]
     occ_sin_v = sin_t[nv]
-    step_ok = steps.abs() <= nv[:, :, None]
+    step_ok = steps.abs() <= nv[..., None]
     range_ok = (
         (occ_r >= const(cfg.min_range))
         & (occ_r <= const(cfg.max_range))
-        & (occ_bin < R)[:, :, None]
+        & (occ_bin < R)[..., None]
     )
     ox, oy, oz = _local_points(occ_r, occ_cos_v, occ_sin_v, cos_b, sin_b)
     occ_world = _to_world(ox, oy, oz, T)
-    occ_valid = bin_hit[:, :, None] & step_ok & range_ok
+    occ_valid = bin_hit[..., None] & step_ok & range_ok
 
     if cfg.z_filter_enabled:
         zmin = const(cfg.z_filter_min)
         free_valid = free_valid & (free_world[..., 2] >= zmin)
         occ_valid = occ_valid & (occ_world[..., 2] >= zmin)
 
-    n_free = free_valid.numel()
-    n_occ = occ_valid.numel()
+    n_free = free_valid[0].numel()
+    n_occ = occ_valid[0].numel()
     points = torch.cat(
-        [free_world.reshape(n_free, 3), occ_world.reshape(n_occ, 3)], dim=0
+        [free_world.reshape(F, n_free, 3), occ_world.reshape(F, n_occ, 3)],
+        dim=1,
     )
-    valid = torch.cat([free_valid.reshape(n_free), occ_valid.reshape(n_occ)])
+    valid = torch.cat(
+        [free_valid.reshape(F, n_free), occ_valid.reshape(F, n_occ)], dim=1
+    )
     is_occ = torch.cat([
         torch.zeros(n_free, dtype=torch.bool, device=device),
         torch.ones(n_occ, dtype=torch.bool, device=device),
-    ])
+    ]).expand(F, -1)
     log_odds = torch.where(
         is_occ, const(cfg.log_odds_occupied), const(cfg.log_odds_free)
     )
-    return {
+    out = {
         "points": points,
         "log_odds": log_odds,
         "is_occupied": is_occ,
         "valid": valid,
     }
+    return out if batched else {k: v[0] for k, v in out.items()}

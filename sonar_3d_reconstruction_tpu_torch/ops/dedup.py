@@ -30,6 +30,13 @@ blocks (parallel/shard_frames.py).  The group must be a pure function of
 the voxel key (the brick's owner shard), so equal voxels stay in one
 segment.
 
+``dedup_frame`` and ``dedup_frame_compact`` take (..., N) rows: a (B, N)
+batch of frames dedups row by row (every sort along the last axis, every
+scan and neighbour compare inside a row), each frame bit-equal to its row
+alone.  On the H100 one (16, N) sort along the last axis costs as much as
+one flat sort with the frame folded above the key and under half of 16
+row sorts (PERF.md), so the batch sorts its rows in place.
+
 The JAX functions truncate records to a static unique budget.  Here the
 output keeps the full candidate width (valid records first, empty lanes
 after), so there is no budget and no overflow; the window engine slices it
@@ -72,34 +79,45 @@ def running_max(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, dim=0).values
 
 
+def _first_lane(x: torch.Tensor, value) -> torch.Tensor:
+    """A (..., 1) column of ``value`` in ``x``'s dtype, to prepend along
+    the last axis."""
+    return torch.full(x.shape[:-1] + (1,), value, dtype=x.dtype,
+                      device=x.device)
+
+
+def _segment_ends(vox: torch.Tensor) -> torch.Tensor:
+    """Lanes whose sorted voxel differs from the next lane's (the last lane
+    of each row always ends a segment): compares within rows only."""
+    differs = vox[..., 1:] != vox[..., :-1]
+    return torch.cat([differs, _first_lane(differs, True)], dim=-1)
+
+
 def _dedup_codes(code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor):
-    """The two-word dedup on (N,) 60-bit codes: (record codes in ascending
-    order, count, n_occ, valid lanes, n_unique, the sort's lane
-    permutation, each record's segment-end lane in sorted order), each of
-    width N (unused lanes after the records hold garbage the caller masks
-    with the valid lanes).  ``perm[end]`` is each record's input lane."""
-    n = code.shape[0]
-    device = code.device
+    """The two-word dedup on (..., N) 60-bit codes, row by row: (record
+    codes in ascending order, count, n_occ, valid lanes, n_unique, the
+    sort's lane permutation, each record's segment-end lane in sorted
+    order), each of width N (unused lanes after the records hold garbage
+    the caller masks with the valid lanes).  ``perm[end]`` is each
+    record's input lane."""
+    n = code.shape[-1]
     skey = torch.where(valid, (code << 1) | occ.to(torch.int64), EMPTY64)
-    skey, perm = torch.sort(skey)
+    skey, perm = torch.sort(skey, dim=-1)
 
     vox = skey >> 1
     # invalid lanes sort past every record, so their sentinel's low bit
     # only reaches cumsum lanes beyond the last record
-    csum_occ = torch.cumsum(skey & 1, dim=0)
-    first = torch.ones(1, dtype=torch.bool, device=device)
-    new_seg = torch.cat([first, vox[1:] != vox[:-1]])
-    is_end = torch.cat([new_seg[1:], first])
-    rec = is_end & (skey != EMPTY64)
-    n_unique = rec.sum()
+    csum_occ = torch.cumsum(skey & 1, dim=-1)
+    rec = _segment_ends(vox) & (skey != EMPTY64)
+    n_unique = rec.sum(dim=-1)
 
     # records are distinct voxels, so the unstable sort fixes their order,
     # which is their end lanes' order; the sentinel tail is masked below
-    c_vox, end = torch.sort(torch.where(rec, vox, EMPTY64 >> 1))
-    c_csum = csum_occ[end]
-    prev_end = torch.cat([end.new_full((1,), -1), end[:-1]])
-    prev_csum = torch.cat([c_csum.new_zeros(1), c_csum[:-1]])
-    valid_u = torch.arange(n, device=device) < n_unique
+    c_vox, end = torch.sort(torch.where(rec, vox, EMPTY64 >> 1), dim=-1)
+    c_csum = torch.gather(csum_occ, -1, end)
+    prev_end = torch.cat([_first_lane(end, -1), end[..., :-1]], dim=-1)
+    prev_csum = torch.cat([_first_lane(c_csum, 0), c_csum[..., :-1]], dim=-1)
+    valid_u = torch.arange(n, device=code.device) < n_unique[..., None]
     return (c_vox, end - prev_end, c_csum - prev_csum, valid_u, n_unique,
             perm, end)
 
@@ -111,8 +129,10 @@ def dedup_frame(
     valid: torch.Tensor,
     brick: bool,
 ) -> UniqueRecords:
-    """(N,) two-word keys (brick codes when ``brick``, else voxel codes),
-    occupied flags and emission mask -> UniqueRecords of width N.
+    """(..., N) two-word keys (brick codes when ``brick``, else voxel
+    codes), occupied flags and emission mask -> UniqueRecords of width N,
+    row by row (a (B, N) batch gives each frame's records bit for bit as
+    its (N,) row alone).
 
     One sort of ``code << 1 | occ`` (61 bits; invalid lanes EMPTY64, last)
     groups each voxel's candidates; a second compacts the segment ends, in
@@ -185,52 +205,52 @@ class CompactRecords(NamedTuple):
 def dedup_frame_compact(
     key: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor
 ) -> CompactRecords:
-    """(N,) box keys (< 2^30), occupied flags and emission mask ->
-    CompactRecords of width N, records in ascending key order."""
-    n = key.shape[0]
-    device = key.device
+    """(..., N) box keys (< 2^30), occupied flags and emission mask ->
+    CompactRecords of width N, records in ascending key order, row by row:
+    a (B, N) batch gives each frame's records, ``n_unique`` and
+    ``pack_fail`` bit for bit as its (N,) row alone (the residue
+    arithmetic and the pack_fail distance test stay inside a row)."""
+    n = key.shape[-1]
     skey = torch.where(valid, (key << 1) | occ.to(torch.int64), EMPTY32)
-    skey = torch.sort(skey).values
+    skey = torch.sort(skey, dim=-1).values
 
     vox = skey >> 1
     # invalid lanes sort past every record, so their sentinel's low bit
     # only reaches cumsum lanes beyond the last record
-    csum_occ = torch.cumsum(skey & 1, dim=0)
-    lane = torch.arange(n, device=device)
+    csum_occ = torch.cumsum(skey & 1, dim=-1)
+    lane = torch.arange(n, device=key.device)
     track = ((lane & 0xFFFF) << 16) | (csum_occ & 0xFFFF)
 
-    first = torch.ones(1, dtype=torch.bool, device=device)
-    new_seg = torch.cat([first, vox[1:] != vox[:-1]])
-    is_end = torch.cat([new_seg[1:], first])
     seg_valid = skey != EMPTY32
-    rec = is_end & seg_valid
-    n_unique = rec.sum()
+    rec = _segment_ends(vox) & seg_valid
+    n_unique = rec.sum(dim=-1)
 
     # a voxel segment of 2^16+ candidates <=> an equal valid voxel pair at
     # distance 65535 in sorted order (compare vox: the occ bit can split a
     # voxel across two skey values)
     if n > 0xFFFF:
         pack_fail = (
-            (vox[0xFFFF:] == vox[:-0xFFFF]) & seg_valid[0xFFFF:]
-        ).any()
+            (vox[..., 0xFFFF:] == vox[..., :-0xFFFF]) & seg_valid[..., 0xFFFF:]
+        ).any(dim=-1)
     else:
-        pack_fail = torch.zeros((), dtype=torch.bool, device=device)
+        pack_fail = torch.zeros(key.shape[:-1], dtype=torch.bool,
+                                device=key.device)
 
     # records are distinct voxels, so the unstable sort fixes their order;
     # the EMPTY32 tail is masked below
-    c_key, order = torch.sort(torch.where(rec, vox, EMPTY32))
-    c_track = track[order]
+    c_key, order = torch.sort(torch.where(rec, vox, EMPTY32), dim=-1)
+    c_track = torch.gather(track, -1, order)
 
     idx16 = c_track >> 16
     csum16 = c_track & 0xFFFF
     # record i's segment spans (end[i-1], end[i]]; record 0's virtual
     # predecessor is lane -1 (0xFFFF mod 2^16) with cumsum 0
-    prev_idx = torch.cat([idx16.new_full((1,), 0xFFFF), idx16[:-1]])
-    prev_csum = torch.cat([csum16.new_zeros(1), csum16[:-1]])
+    prev_idx = torch.cat([_first_lane(idx16, 0xFFFF), idx16[..., :-1]], dim=-1)
+    prev_csum = torch.cat([_first_lane(csum16, 0), csum16[..., :-1]], dim=-1)
     c_count = (idx16 - prev_idx) & 0xFFFF
     c_occ = (csum16 - prev_csum) & 0xFFFF
 
-    valid_u = lane < n_unique
+    valid_u = lane < n_unique[..., None]
     return CompactRecords(
         key=torch.where(valid_u, c_key, EMPTY32),
         payload=torch.where(valid_u, (c_count << 16) | c_occ, 0),

@@ -47,7 +47,8 @@ BOX_MARGIN_VOXELS = 2
 def pack_keys(
     keys: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(N, 3) int voxel keys -> (hi, lo, in_range) voxel codes.
+    """(..., 3) int voxel keys -> (hi, lo, in_range) voxel codes, each
+    (...,): a leading frame axis passes through.
 
     hi = x20 << 12 | y20 >> 8, lo = (y20 & 0xFF) << 20 | z20 (bits 28-31
     zero).  The all-ones x plane is out of range, so hi == EMPTY_HI is
@@ -109,7 +110,8 @@ def _offset_code(off: torch.Tensor, brick_bits: int) -> torch.Tensor:
 def pack_brick_keys(
     keys: torch.Tensor, brick_bits: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(N, 3) int voxel keys -> (hi, lo, in_range) with brick-major order.
+    """(..., 3) int voxel keys -> (hi, lo, in_range) with brick-major
+    order, each (...,).
 
     lo bits: [31 .. o+a+4] by low bits, [o+a+3 .. o+4] bz,
     [o+3 .. 4] offset, [3 .. 0] zero; hi carries bx and by's high bits.
@@ -161,11 +163,13 @@ def pack_box_keys(
     box_bits: Tuple[int, int, int],
     brick_bits: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, 3) int voxel keys -> ((N,) box key as int64, (N,) in_box).
+    """(..., 3) int voxel keys -> ((...,) box key as int64, (...,) in_box).
 
-    ``box_min`` (3,) is the brick-aligned box-origin voxel key and
-    ``box_bits`` the per-axis BRICK bits (ax, ay, az).  Out-of-box keys
-    give a meaningless (but u32-exact) code; mask with ``in_box``.
+    ``box_min`` is the brick-aligned box-origin voxel key: (3,), or
+    (F, 1, 3) for (F, N, 3) keys whose frames each carry their own
+    window's box.  ``box_bits`` are the per-axis BRICK bits (ax, ay, az).
+    Out-of-box keys give a meaningless (but u32-exact) code; mask with
+    ``in_box``.
     """
     ax, ay, az = box_bits
     o = 3 * brick_bits

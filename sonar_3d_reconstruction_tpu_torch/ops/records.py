@@ -33,7 +33,8 @@ from sonar_3d_reconstruction_tpu_torch.ops.packing import (
 
 
 class FrameAux(NamedTuple):
-    """Per-frame reductions that accompany the unique records."""
+    """Per-frame reductions that accompany the unique records (with a
+    leading frame axis for a batch or a window)."""
 
     cmin: torch.Tensor        # (3,) min updated-voxel center (inf if none)
     cmax: torch.Tensor        # (3,) max updated-voxel center (-inf if none)
@@ -51,16 +52,23 @@ def frame_records(
     brick_bits: int,
     dtype: torch.dtype = torch.float32,
     raw: bool = False,
+    frame_on: Optional[torch.Tensor] = None,
 ) -> Tuple[Union[CompactRecords, UniqueRecords], FrameAux]:
-    """One ping -> (records, FrameAux).
+    """One ping -> (records, FrameAux); or a batch of F pings (``image``
+    (F, R, Bw), ``T_sonar_to_world`` (F, 4, 4)) -> records and FrameAux
+    with a leading (F,) axis, each frame bit-equal to its ping alone.
 
     With a box (``box_min``, ``box_bits``) the records are CompactRecords
     with box-relative keys, and a candidate outside the box reports through
     ``range_fail`` (the host gate ``compute_window_boxes`` makes that
-    impossible for its boxes).  Without one (``box_min=None``) they are
-    UniqueRecords with two-word keys: brick codes when ``brick_bits`` > 0,
-    voxel codes (the hash backend's) when it is 0; a candidate outside the
-    packable range reports through ``range_fail``.
+    impossible for its boxes).  ``box_min`` is (3,), or (F, 1, 3) for a
+    box per frame.  Without one (``box_min=None``) they are UniqueRecords
+    with two-word keys: brick codes when ``brick_bits`` > 0, voxel codes
+    (the hash backend's) when it is 0; a candidate outside the packable
+    range reports through ``range_fail``.
+
+    ``frame_on`` (a bool, () or (F,)) masks whole frames: an off frame
+    emits no valid candidate.
 
     ``raw=True`` (box keys only) skips the per-frame dedup: every valid
     candidate is its own record with payload ``1 << 16 | occ``, in the
@@ -83,7 +91,9 @@ def frame_records(
     else:
         hi, lo, in_range = pack_keys(keys)
     valid = cand["valid"]
-    range_fail = (valid & ~in_range).any()
+    if frame_on is not None:
+        valid = valid & torch.as_tensor(frame_on, device=device)[..., None]
+    range_fail = (valid & ~in_range).any(dim=-1)
     valid = valid & in_range
     if box_min is None:
         rec = dedup_frame(hi, lo, cand["is_occupied"], valid, brick_bits > 0)
@@ -92,13 +102,31 @@ def frame_records(
         rec = CompactRecords(
             key=torch.where(valid, bkey, EMPTY32),
             payload=torch.where(valid, (1 << 16) | occ, 0),
-            n_unique=valid.sum(),
-            pack_fail=torch.zeros((), dtype=torch.bool, device=device),
+            n_unique=valid.sum(dim=-1),
+            pack_fail=torch.zeros(valid.shape[:-1], dtype=torch.bool,
+                                  device=device),
         )
     else:
         rec = dedup_frame_compact(bkey, cand["is_occupied"], valid)
 
     return rec, frame_aux(keys, valid, range_fail, res)
+
+
+def frame_records_batch(
+    images: torch.Tensor,
+    transforms: torch.Tensor,
+    frame_on: torch.Tensor,
+    tables: FanTables,
+    cfg: MapperConfig,
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[UniqueRecords, FrameAux]:
+    """Voxel-code records of F pings at once: ``images`` (F, R, Bw),
+    ``transforms`` (F, 4, 4), ``frame_on`` (F,) bool window mask ->
+    UniqueRecords of width N and FrameAux, each with a leading (F,) axis
+    (the JAX package truncates the lanes to its unique budget; here
+    every frame keeps its N lanes, valid records first)."""
+    return frame_records(images, transforms, tables, cfg, None, None, 0,
+                         dtype=dtype, frame_on=frame_on)
 
 
 def frame_aux(
@@ -109,15 +137,16 @@ def frame_aux(
 ) -> FrameAux:
     """A frame's FrameAux from its (N, 3) int32 voxel keys, the mask of its
     valid (in-range) emissions and the voxel size ``res``, a 0-d tensor of
-    the map's dtype on the keys' device."""
+    the map's dtype on the keys' device; reduced row by row for (F, N, 3)
+    keys and (F, N) masks."""
     dtype, device = res.dtype, keys.device
     # bounds reduce over int keys: k -> (k + 0.5) * res is exact and
     # monotone, so min/max commute with it
     imax = torch.iinfo(torch.int32).max
-    kmin = torch.where(valid[:, None], keys, imax).amin(dim=0)
-    kmax = torch.where(valid[:, None], keys, -imax).amax(dim=0)
-    n_valid = valid.sum()
-    any_valid = n_valid > 0
+    kmin = torch.where(valid[..., None], keys, imax).amin(dim=-2)
+    kmax = torch.where(valid[..., None], keys, -imax).amax(dim=-2)
+    n_valid = valid.sum(dim=-1)
+    any_valid = (n_valid > 0)[..., None]
     inf = torch.full((), float("inf"), dtype=dtype, device=device)
 
     def center(k):
@@ -135,13 +164,21 @@ def stack_frame_records(
     outs: List[Tuple[Union[CompactRecords, UniqueRecords], FrameAux]],
     cut: bool = True,
 ) -> Tuple[Union[CompactRecords, UniqueRecords], FrameAux]:
-    """A window's per-frame (records, FrameAux), stacked along a leading
-    frame axis.  With ``cut``, unique records (a prefix of their lanes)
-    are cut to the widest frame's unique count (one sync); raw candidates
-    sit wherever the candidate lattice put them and are stacked uncut."""
+    """Per-frame or per-batch (records, FrameAux), in frame order, stacked
+    along one leading frame axis.  With ``cut``, unique records (a prefix
+    of their lanes) are cut to the widest frame's unique count (one sync a
+    call); raw candidates sit wherever the candidate lattice put them and
+    are stacked uncut."""
     kind = type(outs[0][0])
-    recs = kind(*(torch.stack(x) for x in zip(*(r for r, _ in outs))))
-    auxs = FrameAux(*(torch.stack(x) for x in zip(*(a for _, a in outs))))
+
+    def rows(t, batched):
+        # one frame's fields gain the frame axis a batch's already have
+        return t if batched else type(t)(*(x[None] for x in t))
+
+    recs = kind(*(torch.cat(x) for x in zip(
+        *(rows(r, r.n_unique.dim() > 0) for r, _ in outs))))
+    auxs = FrameAux(*(torch.cat(x) for x in zip(
+        *(rows(a, a.n_valid.dim() > 0) for _, a in outs))))
     if not cut:
         return recs, auxs
     width = max(1, int(recs.n_unique.max()))

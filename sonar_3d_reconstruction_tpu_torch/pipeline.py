@@ -6,7 +6,10 @@ backends).
 records (ops/records.py); per window, one apply to the map.  The host loop
 is eager; each window syncs a few sizes (the largest frame's unique count,
 the window's lanes and bricks or voxels, its failure flags) to size its
-tensors from the actual counts.
+tensors from the actual counts.  On the brick backend ``records_batch``
+computes the records of several pings in one set of tensor ops, and
+``window_group`` computes several windows' records before their applies
+(``scan_pings_brick``); neither changes the map.
 
 Brick backend (grid/brick.py, through the binning kernel K1).  A sequence
 whose every window fits compact box keys (``compute_window_boxes``) takes
@@ -36,7 +39,8 @@ one frame are fatal (ValueError), as growth cannot fix them.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import math
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -127,27 +131,28 @@ def _window_records(
     dtype: torch.dtype,
     box_bits: Optional[Tuple[int, int, int]],
     brick_bits: int,
-    dense_mode: str = "pallas",
-) -> Tuple[Union[CompactRecords, UniqueRecords], FrameAux]:
-    """Records of a window's frames, stacked along a leading frame axis:
-    compact box keys with a box, two-word keys without one (brick codes
-    when ``brick_bits`` > 0, voxel codes when it is 0).
-
-    Unique records are a prefix of their lanes and are cut to the widest
-    frame's unique count (one sync).  Raw candidates (box keys only) sit
-    wherever the candidate lattice put them, so they keep their full
-    width: a cut would drop valid candidates."""
-    raw = is_raw_mode(dense_mode) and box_min is not None
+    raw: bool = False,
+    records_batch: int = 1,
+) -> List[Tuple[Union[CompactRecords, UniqueRecords], FrameAux]]:
+    """Records of a window's ``frames`` in frame order, for
+    ``stack_frame_records``: compact box keys with a box (raw candidates
+    when ``raw``), two-word keys without one (brick codes when
+    ``brick_bits`` > 0, voxel codes when it is 0).  One ``frame_records``
+    call a frame when ``records_batch`` <= 1, else one a batch of up to
+    ``records_batch`` frames (the last batch takes what is left)."""
     box_min_t = (None if box_min is None
                  else torch.as_tensor(box_min, device=images.device))
-    outs = [
-        frame_records(
-            images[i], transforms[i], tables, cfg, box_min_t, box_bits,
-            brick_bits, dtype=dtype, raw=raw,
-        )
-        for i in frames
+    kw = dict(dtype=dtype, raw=raw)
+    if records_batch <= 1:
+        return [frame_records(images[i], transforms[i], tables, cfg,
+                              box_min_t, box_bits, brick_bits, **kw)
+                for i in frames]
+    return [
+        frame_records(images[i:i + records_batch],
+                      transforms[i:i + records_batch], tables, cfg,
+                      box_min_t, box_bits, brick_bits, **kw)
+        for i in range(frames.start, frames.stop, records_batch)
     ]
-    return stack_frame_records(outs, cut=not raw)
 
 
 def _record_stats(stats, win, w0: int, w1: int) -> bool:
@@ -173,6 +178,8 @@ def scan_pings_brick(
     window: int,
     boxes,
     dense_mode: str = "pallas",
+    records_batch: int = 1,
+    window_group: int = 1,
 ) -> Tuple[BrickGridState, Dict[str, np.ndarray]]:
     """Apply pings [start, P) window by window; returns (state, per-ping
     stats (P,) on the host).
@@ -183,29 +190,59 @@ def scan_pings_brick(
     boundary.  The scan stops at the first failed window: it and every
     later ping report ``overflowed`` and the returned state is poisoned,
     with nothing of the failed window applied.
+
+    ``records_batch`` B > 1 computes a window's records B frames at a time
+    (one set of tensor ops a batch instead of a frame, B times the records
+    intermediates); B snaps to gcd(B, window), as in the JAX package, so a
+    batch never spans two windows, and a short last window takes a smaller
+    last batch.  1 computes them frame by frame, and so does 0 (the JAX
+    package's full unroll: there is no program here to unroll).
+    ``window_group`` G > 1 (box keys only, as in the JAX package) computes
+    the records of G consecutive windows before applying them in order:
+    one width sync a group instead of one a window, G windows of records
+    held at once; each window keeps its own apply, and a failed window
+    stops the scan before the group's later windows (whose records a
+    growth replay computes again).  Neither changes the map or a stat.
     """
     P = images.shape[0]
     if start % window:
         raise ValueError(f"start {start} is not a multiple of window {window}")
+    if records_batch < 0:
+        raise ValueError(f"records_batch must be >= 0, got {records_batch}")
+    if window_group < 1:
+        raise ValueError(f"window_group must be >= 1, got {window_group}")
+    records_batch = max(1, math.gcd(records_batch, window))
+    group = 1 if boxes is None else window_group
+    raw = is_raw_mode(dense_mode) and boxes is not None
     box_mins, box_bits = (None, None) if boxes is None else boxes
     stats = {k: np.zeros(P, dt) for k, dt in STAT_DTYPES.items()}
-    for w0 in range(start, P, window):
-        w1 = min(w0 + window, P)
-        box_min = None if boxes is None else box_mins[w0 // window]
-        recs, auxs = _window_records(
-            images, transforms, range(w0, w1), box_min,
-            tables=tables, cfg=cfg, dtype=dtype, box_bits=box_bits,
-            brick_bits=state.brick_bits, dense_mode=dense_mode,
-        )
-        if boxes is None:
-            state, win = apply_brick_records_wide(state, recs, auxs, cfg)
-        else:
-            state, win = apply_brick_records_compact(
-                state, recs, auxs, cfg, box_min, box_bits,
-                dense_mode=dense_mode,
+    wins = [(w0, min(w0 + window, P)) for w0 in range(start, P, window)]
+    for g in range(0, len(wins), group):
+        todo = wins[g:g + group]
+        g0 = todo[0][0]
+        # unique records are cut to the group's widest frame (one sync);
+        # raw candidates keep their full width: a cut would drop some
+        recs, auxs = stack_frame_records([
+            out for w0, w1 in todo for out in _window_records(
+                images, transforms, range(w0, w1),
+                None if boxes is None else box_mins[w0 // window],
+                tables=tables, cfg=cfg, dtype=dtype, box_bits=box_bits,
+                brick_bits=state.brick_bits, raw=raw,
+                records_batch=records_batch,
             )
-        if _record_stats(stats, win, w0, w1):
-            break
+        ], cut=not raw)
+        for w0, w1 in todo:
+            rec = type(recs)(*(x[w0 - g0:w1 - g0] for x in recs))
+            aux = FrameAux(*(x[w0 - g0:w1 - g0] for x in auxs))
+            if boxes is None:
+                state, win = apply_brick_records_wide(state, rec, aux, cfg)
+            else:
+                state, win = apply_brick_records_compact(
+                    state, rec, aux, cfg, box_mins[w0 // window], box_bits,
+                    dense_mode=dense_mode,
+                )
+            if _record_stats(stats, win, w0, w1):
+                return state, stats
     return state, stats
 
 
@@ -234,10 +271,10 @@ def scan_pings_hash(
                                     dtype=dtype)
             state, win = update_hash_grid(state, cand, cfg)
         else:
-            recs, auxs = _window_records(
+            recs, auxs = stack_frame_records(_window_records(
                 images, transforms, range(w0, w1), None, tables=tables,
                 cfg=cfg, dtype=dtype, box_bits=None, brick_bits=0,
-            )
+            ))
             state, win = apply_records_batched(state, recs, auxs, cfg)
         if _record_stats(stats, win, w0, w1):
             break
@@ -282,6 +319,8 @@ def map_ping_sequence(
     dense_mode: str = "pallas",
     tables: Optional[FanTables] = None,
     dense_spec: Optional[DenseGridSpec] = None,
+    records_batch: int = 1,
+    window_group: int = 1,
 ) -> Tuple[MapState, Dict[str, np.ndarray]]:
     """Map a whole recorded ping sequence on ``device``: the first CUDA
     device when it is None (RuntimeError where there is none; pass "cpu"
@@ -299,7 +338,10 @@ def map_ping_sequence(
     the kernel); both give the same map.  ``tables`` are the fan tables of
     the images' geometry (default: built with every lattice cap sized for
     these images); a caller that maps many short sequences of one geometry
-    passes its own, so they are built once.
+    passes its own, so they are built once.  ``records_batch`` and
+    ``window_group`` (brick only; ValueError on another backend unless 1)
+    batch the records half as ``scan_pings_brick`` says; the map and the
+    stats do not change.
 
     Returns (final state, per-ping stats: ``num_occupied`` / ``num_free``
     unique voxels by type, ``num_candidates`` valid emissions; on the
@@ -313,6 +355,12 @@ def map_ping_sequence(
                          f"'hash' or 'dense'")
     check_state_backend(state, backend)
     is_raw_mode(dense_mode)
+    if backend != "brick" and (records_batch, window_group) != (1, 1):
+        raise ValueError(
+            f"records_batch and window_group batch the brick backend's "
+            f"records; backend={backend!r} takes neither (got "
+            f"{records_batch}, {window_group})"
+        )
     # canonical form ("cuda" -> "cuda:0"), as tensors report their device
     device = (require_cuda() if device is None
               else torch.empty(0, device=device).device)
@@ -354,7 +402,8 @@ def map_ping_sequence(
     kw = dict(tables=tables, cfg=cfg, dtype=dtype, window=window)
     if backend == "brick":
         # box keys only if every window fits them, as in the JAX package
-        kw.update(dense_mode=dense_mode, boxes=compute_window_boxes(
+        kw.update(dense_mode=dense_mode, records_batch=records_batch,
+                  window_group=window_group, boxes=compute_window_boxes(
             T[:, :3, 3], cfg.max_range, cfg.voxel_resolution, window,
             state.brick_bits, frame_bits=max(1, (window - 1).bit_length()),
         ))

@@ -380,8 +380,9 @@ def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
 
 
 def test_port_runs_with_jax_blocked():
-    """The port and its CPU path import neither jax nor the JAX package:
-    the main path, the hash backend (pipeline, snapshot, mapper), wide
+    """The port and its CPU path import neither jax, the JAX package nor
+    the root bench.py: the main path (with batched records too), the
+    bench's survey and one bench run, the hash backend (pipeline, snapshot, mapper), wide
     keys, the dense backend (pipeline, mapper), the multi-host fold, the
     sharded brick engine (engine, snapshot, mapper), every module of the port (the stream, the node and the debug
     overlay included), a stream over the same pings, and the CLI's
@@ -391,7 +392,8 @@ def test_port_runs_with_jax_blocked():
         for name in list(sys.modules):
             if name.split(".")[0] in ("jax", "jaxlib"):
                 del sys.modules[name]
-        for name in ("jax", "jaxlib", "sonar_3d_reconstruction_tpu"):
+        for name in ("jax", "jaxlib", "sonar_3d_reconstruction_tpu",
+                     "bench"):
             sys.modules[name] = None
         import numpy as np, torch
         from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
@@ -414,6 +416,14 @@ def test_port_runs_with_jax_blocked():
                                           window=2, dense_mode="pallas-raw")
         assert torch.equal(r_st.log_odds, st.log_odds)
         assert (r_stats["num_occupied"] == stats["num_occupied"]).all()
+        b_st, b_stats = map_ping_sequence(images, pos, q, cfg, device="cpu",
+                                          window=2, records_batch=4,
+                                          window_group=2)
+        assert torch.equal(b_st.log_odds, st.log_odds)
+        assert (b_stats["num_free"] == stats["num_free"]).all()
+        from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
+        survey = make_inputs(MapperConfig(), 2)
+        assert survey[0].shape == (2, 500, 512)
         import os, tempfile
         from sonar_3d_reconstruction_tpu_torch.grid.hash import (
             extract_occupied_hash, touched_voxels_hash)
@@ -491,8 +501,10 @@ def test_port_runs_with_jax_blocked():
                              run_name="__main__")
         except SystemExit as e:
             assert e.code == 0, e.code
+        os.environ.update(BENCH_PINGS="1", BENCH_REPS="1", BENCH_LATENCY="0")
+        assert cli.main(["bench", "--device", "cpu"]) == 0
         loaded = [m for m in sys.modules if m.split(".")[0] in
-                  ("jax", "jaxlib", "sonar_3d_reconstruction_tpu")
+                  ("jax", "jaxlib", "sonar_3d_reconstruction_tpu", "bench")
                   and sys.modules[m] is not None]
         assert not loaded, loaded
         print("ok", len(pts))
