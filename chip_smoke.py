@@ -219,6 +219,33 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    in windows of 16 and of 4, card against CPU (stats and every state
    array bit-equal); ``python -m sonar_3d_reconstruction_tpu_torch bench``
    at its defaults in a subprocess, its JSON line parsed and printed.
+13. the port held to its golden oracle (``sonar_3d_reconstruction_tpu_
+   torch.golden``, pure NumPy on the host) on the card, through
+   ``scripts/torch_fuzz_golden.py``:
+   a. GOLDEN_SEEDS fuzz trials (random configs and pings, drawn as
+      ``scripts/fuzz_golden.py`` draws them) through every engine of the
+      port in float64 (voxel sets and per-ping num_occupied / num_free
+      equal to golden's, log-odds within 1e-9) and the brick engines in
+      float32 (probabilities within 1e-5 on the common voxels; the voxels
+      one map holds under 2e-3 of the common ones over the phase); K1 and
+      K1-raw against their plain versions on each trial's widest window
+      in float32 and float64;
+   b. each production preset of PRESET_NAMES at 500x512 (from its YAML
+      through ``load_config`` where PyYAML is installed, else from
+      ``config.PRESETS``; the route is printed) on a pass at
+      PRESET_DEPTH: its first PRESET_GOLDEN_PINGS pings against golden
+      (float64 exact, float32 as in 13a) and the share of candidates the
+      z filter drops (must be > 0); the PRESET_PINGS-ping survey at each
+      records_batch of PRESET_BATCHES (maps and stats bit-equal; walls, K1
+      launches, peak memory); the node under ``ros_stub()`` fed the
+      preset's parameters and the survey's pings (map equal to the
+      survey's);
+   c. LONG_PINGS full-size pings: float32 records applied into a float32
+      and a float64 brick map (probabilities within 1e-5 on every voxel,
+      more than 500,000 voxels), and pure float32 against pure float64
+      maps (voxels one map holds and common voxels over 1e-5 each under
+      2e-3 of the common voxels, the 99.5th percentile within 1e-5).
+   Any mismatch prints its repro line and fails the run.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -1335,14 +1362,15 @@ NODE_PHASE = {"brick": "6f", "hash": "7d", "dense": "8c",
               "brick-sharded": "9d"}
 
 
-def _survey_msgs(n):
-    """The first n pings of phase 2's survey as (ImageMsg, OdometryMsg)
-    pairs stamped 1000.0 + 0.1 i."""
+def _survey_msgs(n, inputs=None):
+    """The first n pings of phase 2's survey (of ``inputs``, (images,
+    positions, quats), when given) as (ImageMsg, OdometryMsg) pairs
+    stamped 1000.0 + 0.1 i."""
     from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
     from sonar_3d_reconstruction_tpu_torch.io.bag import ImageMsg, OdometryMsg
 
-    images, positions, quats = make_inputs(MapperConfig(), n)
+    images, positions, quats = inputs or make_inputs(MapperConfig(), n)
     h, w = images.shape[1:]
     return [(ImageMsg(1000.0 + 0.1 * i, "sonar_link", h, w, "mono8", False, w,
                       images[i].tobytes()),
@@ -1750,21 +1778,33 @@ def ros_stub():
     }
 
 
-def _node(dev, smi, msgs, backend="brick"):
-    """6f (7d with ``backend="hash"``, 8c with "dense"): the port's node
-    under ros_stub() with that ``map_backend``: NODE_PINGS full-size
-    pairs, the publish timer once with the cloud and once with the
-    markers; its map against a CPU SonarMapper of the backend fed the same
-    pings.  Returns (its K1 launches, None on the hash and dense maps,
-    which launch no kernel; facts).  With "brick-sharded" (9d) the CPU
-    mapper has as many shards as the node's mesh."""
-    import importlib
+def _ros_pair(img, odom):
+    """An (ImageMsg, OdometryMsg) pair as the ROS stub's messages."""
     import types
 
-    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
-    from sonar_3d_reconstruction_tpu_torch.io.pointcloud import (
-        serialize_pointcloud2,
-    )
+    def header(t):
+        return types.SimpleNamespace(stamp=types.SimpleNamespace(
+            sec=int(t), nanosec=int(round((t % 1.0) * 1e9))))
+    i = types.SimpleNamespace(
+        header=header(img.stamp), height=img.height, width=img.width,
+        encoding=img.encoding, is_bigendian=img.is_bigendian,
+        step=img.step, data=img.data)
+    p, q = odom.position, odom.orientation
+    o = types.SimpleNamespace(
+        header=header(odom.stamp), pose=types.SimpleNamespace(
+            pose=types.SimpleNamespace(
+                position=types.SimpleNamespace(x=p[0], y=p[1], z=p[2]),
+                orientation=types.SimpleNamespace(
+                    x=q[0], y=q[1], z=q[2], w=q[3]))))
+    return i, o
+
+
+@contextlib.contextmanager
+def stub_node(overrides):
+    """While open, the port's SonarMapperNode built under ros_stub() with
+    the parameters ``overrides`` (the reference defaults elsewhere);
+    afterwards sys.modules and the node module are as they were."""
+    import importlib
 
     import sonar_3d_reconstruction_tpu_torch.node as node_mod
 
@@ -1775,35 +1815,46 @@ def _node(dev, smi, msgs, backend="brick"):
         importlib.reload(node_mod)
         if not node_mod._ROS2:
             raise AssertionError("the node did not take the ROS stub")
-        # the reference defaults but for the map backend
-        stub["rclpy.node"].Node.overrides = {"map_backend": backend}
-        node = node_mod.SonarMapperNode()
+        stub["rclpy.node"].Node.overrides = dict(overrides)
+        yield node_mod.SonarMapperNode()
+    finally:
+        for name, m in saved.items():
+            if m is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = m
+        importlib.reload(node_mod)
 
-        def ros(img, odom):
-            def header(t):
-                return types.SimpleNamespace(stamp=types.SimpleNamespace(
-                    sec=int(t), nanosec=int(round((t % 1.0) * 1e9))))
-            i = types.SimpleNamespace(
-                header=header(img.stamp), height=img.height, width=img.width,
-                encoding=img.encoding, is_bigendian=img.is_bigendian,
-                step=img.step, data=img.data)
-            p, q = odom.position, odom.orientation
-            o = types.SimpleNamespace(
-                header=header(odom.stamp), pose=types.SimpleNamespace(
-                    pose=types.SimpleNamespace(
-                        position=types.SimpleNamespace(x=p[0], y=p[1], z=p[2]),
-                        orientation=types.SimpleNamespace(
-                            x=q[0], y=q[1], z=q[2], w=q[3]))))
-            return i, o
 
-        pairs = [ros(*m) for m in msgs[:NODE_PINGS]]
-        sonar_sub, odom_sub = node._sync.subscribers
+def _deliver(node, pairs):
+    """Deliver ROS stub message pairs to the node's synchronizer; returns
+    the frames its mapper has mapped."""
+    sonar_sub, odom_sub = node._sync.subscribers
+    for i, o in pairs:
+        sonar_sub.deliver(i)
+        odom_sub.deliver(o)
+    return node.mapper.frame_count
+
+
+def _node(dev, smi, msgs, backend="brick"):
+    """6f (7d with ``backend="hash"``, 8c with "dense"): the port's node
+    under ros_stub() with that ``map_backend``: NODE_PINGS full-size
+    pairs, the publish timer once with the cloud and once with the
+    markers; its map against a CPU SonarMapper of the backend fed the same
+    pings.  Returns (its K1 launches, None on the hash and dense maps,
+    which launch no kernel; facts).  With "brick-sharded" (9d) the CPU
+    mapper has as many shards as the node's mesh."""
+    from sonar_3d_reconstruction_tpu_torch.models import SonarMapper
+    from sonar_3d_reconstruction_tpu_torch.io.pointcloud import (
+        serialize_pointcloud2,
+    )
+
+    # the reference defaults but for the map backend
+    with stub_node({"map_backend": backend}) as node:
+        pairs = [_ros_pair(*m) for m in msgs[:NODE_PINGS]]
 
         def deliver():
-            for i, o in pairs:
-                sonar_sub.deliver(i)
-                odom_sub.deliver(o)
-            return node.mapper.frame_count
+            return _deliver(node, pairs)
 
         if backend in ("hash", "dense"):
             (frames, n), wall = _wall(lambda: (deliver(), None))
@@ -1838,13 +1889,6 @@ def _node(dev, smi, msgs, backend="brick"):
         if counts != {f"sonar_3d_map_{k}": len(cls[k][0])
                       for k in ("occupied", "free", "unknown")}:
             raise AssertionError(f"marker counts {counts}")
-    finally:
-        for name, m in saved.items():
-            if m is None:
-                sys.modules.pop(name, None)
-            else:
-                sys.modules[name] = m
-        importlib.reload(node_mod)
     print(
         f"phase {NODE_PHASE[backend]} node: {NODE_PINGS} "
         f"pairs of 500x512 through the ROS stub's synchronizer into "
@@ -2076,14 +2120,8 @@ def _wide_keys(dev, smi):
     voxels, diff, n_diff = _same_voxels(_touched(b_st), _touched(h_st),
                                         F32_LOG_ODDS_TOL, "wide brick vs hash")
 
-    kw = dict(B=16, vol=64, f_bits=4, o=6, cfg=cfg)
-    args = kept["args"]
-    for dtype in (torch.float32, torch.float64):
-        a = args[:3] + (args[3].to(dtype),)
-        got, want = k1.bin_apply(*a, **kw), k1.bin_apply_reference(*a, **kw)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"bin_apply != plain on the widest wide "
-                                 f"window ({dtype})")
+    args, kw = kept["args"], kept["kw"]
+    _widest_equals_plain(kept, False, "7b the widest wide window")
     k1_ms = _device_ms(lambda: k1.bin_apply(*args, **kw), "bin_apply_kernel")
     k1_bound_ms = _bound_ms(k1_bytes(args, False, 16)[0])
     nb, lanes = args[3].shape[0], args[0].shape[0]
@@ -2666,14 +2704,8 @@ def _sharded_wide(dev, smi, wide_voxels):
                 images, positions, quats, cfg, mesh=(dev,) * SHARDED_S,
                 window=16, dtype=torch.float32), what=what))
     voxels, _, _ = _same_voxels(_touched(st), wide_voxels, 0.0, what)
-    kw = dict(B=16, vol=64, f_bits=4, o=6, cfg=cfg)
-    args = kept["args"]
-    for dtype in (torch.float32, torch.float64):
-        a = args[:3] + (args[3].to(dtype),)
-        got, want = k1.bin_apply(*a, **kw), k1.bin_apply_reference(*a, **kw)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"bin_apply != plain on the widest sharded "
-                                 f"wide window ({dtype})")
+    args, kw = kept["args"], kept["kw"]
+    _widest_equals_plain(kept, False, f"9b {what}")
     k1_ms = _device_ms(lambda: k1.bin_apply(*args, **kw), "bin_apply_kernel")
     bound_ms = _bound_ms(k1_bytes(args, False, 16)[0])
     nb, lanes = args[3].shape[0], args[0].shape[0]
@@ -3166,14 +3198,8 @@ def _replicated_brick(dev, smi, main_voxels, main_stats):
     voxels = _same_voxels(_touched(st), _by_key(main_voxels), 0.0,
                           f"{what} vs phase 2")[0]
     per_shard = _check_owners(st, what)
-    kw = dict(B=16, vol=64, f_bits=4, o=6, cfg=cfg)
-    args = kept["args"]
-    for dtype in (torch.float32, torch.float64):
-        a = args[:3] + (args[3].to(dtype),)
-        got, want = k1.bin_apply(*a, **kw), k1.bin_apply_reference(*a, **kw)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"bin_apply != plain on the widest "
-                                 f"replicated shard window ({dtype})")
+    args, kw = kept["args"], kept["kw"]
+    _widest_equals_plain(kept, False, f"10c {what}")
     k1_ms = _device_ms(lambda: k1.bin_apply(*args, **kw), "bin_apply_kernel")
     bound_ms = _bound_ms(k1_bytes(args, False, 16)[0])
     nb, lanes = args[3].shape[0], args[0].shape[0]
@@ -3451,18 +3477,7 @@ def _sharded_raw(dev, smi, inputs, main_voxels, main_stats):
     voxels = _same_voxels(_touched(st), _by_key(main_voxels), 0.0,
                           f"{what} vs phase 2")[0]
     args, kw = kept["args"], kept["kw"]
-    max_err = 0.0
-    for dtype in (torch.float32, torch.float64):
-        a = args[:3] + (args[3].to(dtype),)
-        got = k1.bin_apply_raw(*a, **kw)
-        want = k1.bin_apply_raw_reference(*a, **kw)
-        err = float((got[0].double() - want[0].double()).abs().max())
-        if err > KERNEL_TOL or not all(
-                torch.equal(g, w) for g, w in zip(got[1:], want[1:])):
-            raise AssertionError(f"bin_apply_raw != plain on the widest "
-                                 f"sharded raw window ({dtype}): max |diff| "
-                                 f"{err}")
-        max_err = max(max_err, err)
+    _widest_equals_plain(kept, True, f"11b {what}")
     ms = _device_ms(lambda: k1.bin_apply_raw(*args, **kw), "bin_apply_kernel")
     plain_ms = _time_ms(lambda: k1.bin_apply_raw_reference(*args, **kw))
     nbytes = k1_bytes(args, True, kw["B"])[0]
@@ -3475,8 +3490,8 @@ def _sharded_raw(dev, smi, inputs, main_voxels, main_stats):
         f"{wall:.3f} s, {len(images) / wall:.1f} pings/s, {launches} "
         f"bin_apply_raw launches (expected {want_launches}: one a shard a "
         f"window), 0 bin_apply, {grown['n']} rehash calls; bin_apply_raw == "
-        f"plain in float32 and float64 on the widest shard window (NB={nb}, "
-        f"L={lanes}, max |diff| {max_err}, tolerance {KERNEL_TOL}), "
+        f"plain in float32 and float64 on the widest shard window, bit-equal "
+        f"(NB={nb}, L={lanes}), "
         f"{ms:.4f} ms device time (plain {plain_ms:.4f} ms), bound "
         f"{bound_ms:.4f} ms ({nbytes} bytes, {bound_ms / ms:.1%} of it) "
         f"[{smi}]",
@@ -3484,7 +3499,7 @@ def _sharded_raw(dev, smi, inputs, main_voxels, main_stats):
     )
     return launches, dict(
         wall_s=wall, pings_per_sec=len(images) / wall, launches=launches,
-        rehash_calls=grown["n"], voxels=voxels, max_abs_err=max_err,
+        rehash_calls=grown["n"], voxels=voxels,
         widest_ms=ms, widest_plain_ms=plain_ms, widest_bound_ms=bound_ms,
         widest_bytes=nbytes, widest_nb=nb, widest_lanes=lanes)
 
@@ -3819,6 +3834,336 @@ def phase_records_batch(dev, smi, main_np, main_stats, raw_stats):
     return launches, facts
 
 
+GOLDEN_SEEDS = tuple(range(45)) + (1002, 2016, 2048)   # 13a: fuzz trials
+PRESET_NAMES = ("kiro_tilt60", "kiro_tilt90")          # 13b
+PRESET_PINGS = 256    # 13b: the survey's pings under each preset
+PRESET_GOLDEN_PINGS = 4   # 13b: the pass's first pings held to golden
+PRESET_DEPTH = -3.0   # 13b: m; shallow enough that the z filter clips
+PRESET_BATCHES = (1, 16)  # 13b: records_batch settings, maps bit-equal
+LONG_PINGS = 200      # 13c: full-size pings of the long horizon
+
+
+def _fuzz():
+    """scripts/torch_fuzz_golden.py, the port's golden fuzz and its
+    decoders and long-horizon checks."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_fuzz_golden
+
+    return torch_fuzz_golden
+
+
+def _widest_equals_plain(kept, raw, what):
+    """The kept widest call of K1 (``raw``: K1-raw) against its plain
+    version in float32 and float64 on the card: every output bit-equal."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+
+    kernel, plain = ((k1.bin_apply_raw, k1.bin_apply_raw_reference) if raw
+                     else (k1.bin_apply, k1.bin_apply_reference))
+    if "args" not in kept:
+        raise AssertionError(f"{what}: no {kernel.__name__} call")
+    args, kw = kept["args"], kept["kw"]
+    for dtype in (torch.float32, torch.float64):
+        a = args[:3] + (args[3].to(dtype),)
+        got, want = kernel(*a, **kw), plain(*a, **kw)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            err = float((got[0].double() - want[0].double()).abs().max())
+            raise AssertionError(
+                f"{what}: {kernel.__name__} != plain on its widest window "
+                f"({dtype}, NB={args[3].shape[0]}, L={args[0].shape[0]}): "
+                f"max |diff| {err}")
+
+
+def _held(result, what):
+    """A fuzz TrialResult that failed raises with its repro line."""
+    if result.failure:
+        print(f"  {what}: {result.message}\n  {result.repro()}", flush=True)
+        raise AssertionError(f"{what}: {result.message}; {result.repro()}")
+
+
+def _golden_fuzz(dev, smi, fuzz):
+    """13a: each trial of GOLDEN_SEEDS through every engine of the port in
+    float64 and the brick engines in float32, held to the port's golden on
+    the host; K1 and K1-raw against their plain versions on each trial's
+    widest window.  Returns ({K1 form: launches}, facts)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+
+    t0 = time.perf_counter()
+    launches = {"bin_apply": 0, "bin_apply_raw": 0}
+    f32, golden_s = [], 0.0
+    for seed in GOLDEN_SEEDS:
+        t_g = time.perf_counter()
+        fuzz.golden_of(seed)
+        golden_s += time.perf_counter() - t_g
+        with keep_widest_k1_call(False) as kept, \
+                keep_widest_k1_call(True) as kept_raw:
+            _reset_counts()
+            r64 = fuzz.run_trial(seed, device=dev, dtype=torch.float64)
+            _held(r64, f"13a seed {seed} float64")
+            r32 = fuzz.run_trial(seed, device=dev, dtype=torch.float32)
+            _held(r32, f"13a seed {seed} float32")
+            launches["bin_apply"] += k1.launches
+            launches["bin_apply_raw"] += k1.raw_launches
+        f32.append(r32)
+        for raw, k in ((False, kept), (True, kept_raw)):
+            _widest_equals_plain(k, raw, f"13a seed {seed}")
+    if not all(launches.values()):
+        raise AssertionError(f"13a launched {launches}")
+    sym, common = fuzz.flip_rate(f32)
+    rate = sym / max(1, common)
+    if rate >= fuzz.FLIP_RATE:
+        raise AssertionError(f"13a float32 flip rate {rate:.3g} >= "
+                             f"{fuzz.FLIP_RATE}")
+    worst32 = max(e.max_err for r in f32 for e in r.engines.values())
+    wall = time.perf_counter() - t0
+    print(
+        f"phase 13a golden fuzz on {dev}: {len(GOLDEN_SEEDS)} seeds (configs "
+        f"and pings drawn as scripts/fuzz_golden.py draws them), "
+        f"{len(fuzz.ENGINES)} engines each in float64: voxel sets and "
+        f"per-ping num_occupied / num_free equal to the port's golden on the "
+        f"host, log-odds within {fuzz.F64_TOL}; {len(fuzz.BRICK_ENGINES)} "
+        f"brick engines in float32: probabilities within {worst32:.3g} "
+        f"(bar {fuzz.F32_PROB_TOL}) on the common voxels, {sym} voxels one "
+        f"map holds of {common} common ({rate:.3g}, bar {fuzz.FLIP_RATE}); "
+        f"bin_apply / bin_apply_raw == plain on each trial's widest window "
+        f"in float32 and float64, bit-equal; launches "
+        f"{launches}; {wall:.1f} s (golden {golden_s:.1f} s) [{smi}]",
+        flush=True,
+    )
+    return launches, dict(seeds=len(GOLDEN_SEEDS), engines=len(fuzz.ENGINES),
+                          f32_max_prob_err=worst32, f32_sym_diff=sym,
+                          f32_common=common, f32_flip_rate=rate,
+                          wall_s=wall, golden_s=golden_s)
+
+
+def _preset_config(name):
+    """(config, node parameters, route) of a production preset: loaded
+    from config/<name>.yaml through ``load_config``, as the launch file
+    loads it, where PyYAML is installed (and held equal to
+    ``config.PRESETS``), else ``config.PRESETS``; the node parameters are
+    the config's in the node's names and units (degrees)."""
+    import importlib.util
+    import math
+
+    from sonar_3d_reconstruction_tpu_torch.config import PRESETS, load_config
+
+    cfg, route = PRESETS[name], "config.PRESETS (PyYAML is not installed)"
+    if importlib.util.find_spec("yaml") is not None:
+        path = os.path.join(ROOT, "config", f"{name}.yaml")
+        loaded, _ = load_config(path)
+        if loaded != cfg:
+            raise AssertionError(f"{path} loads another config than "
+                                 f"PRESETS[{name!r}]")
+        route = f"config/{name}.yaml through load_config"
+    params = {k: v for k, v in cfg.to_dict().items()
+              if k not in ("sonar_position", "sonar_orientation")}
+    for axis, v in zip("xyz", cfg.sonar_position):
+        params[f"sonar_position.{axis}"] = v
+    for axis, v in zip(("roll", "pitch", "yaw"), cfg.sonar_orientation):
+        params[f"sonar_orientation.{axis}"] = round(math.degrees(v), 9)
+    return cfg, params, route
+
+
+def _preset_golden(dev, cfg, fuzz, inputs):
+    """13b: the pass's first PRESET_GOLDEN_PINGS pings on the card against
+    golden on the host (float64 exact, float32 at the fuzz's bars) and the
+    share of candidates the z filter drops.  Returns facts."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.golden import GoldenMapper
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    n = PRESET_GOLDEN_PINGS
+    images, positions, quats = (x[:n] for x in inputs)
+    t0 = time.perf_counter()
+    g = GoldenMapper(cfg)
+    g_stats = [g.process_ping(*x) for x in zip(images, positions, quats)]
+    golden_s = time.perf_counter() - t0
+    want = fuzz.Golden(dict(g.map.log_odds),
+                       np.asarray([s["num_occupied"] for s in g_stats]),
+                       np.asarray([s["num_free"] for s in g_stats]))
+    facts = dict(golden_s=golden_s, voxels=len(want.log_odds))
+    for dtype in (torch.float64, torch.float32):
+        st, stats = map_ping_sequence(images, positions, quats, cfg,
+                                      device=dev, dtype=dtype, window=n)
+        res, failure = fuzz.compare(
+            (fuzz.brick_to_dict(st), stats["num_occupied"],
+             stats["num_free"]), want, dtype)
+        if failure or res.sym_diff / max(1, res.common) >= fuzz.FLIP_RATE:
+            raise AssertionError(f"13b {cfg} {dtype}: {failure or res}")
+        facts[str(dtype).split(".")[1]] = dict(
+            max_err=res.max_err, sym_diff=res.sym_diff,
+            stats_equal=res.stats_equal)
+        if dtype == torch.float64:
+            filtered = stats["num_candidates"].sum()
+    _, open_stats = map_ping_sequence(
+        images, positions, quats, cfg.replace(z_filter_enabled=False),
+        device=dev, dtype=torch.float64, window=n)
+    facts["z_drop_share"] = float(
+        1.0 - filtered / open_stats["num_candidates"].sum())
+    if not facts["z_drop_share"] > 0:
+        raise AssertionError("13b: the z filter dropped no candidate")
+    return facts
+
+
+def _preset_survey(dev, smi, fuzz, name):
+    """13b for one preset: the golden pass (``_preset_golden``), the
+    PRESET_PINGS-ping survey at each records_batch of PRESET_BATCHES
+    (window 16, float32; maps and stats bit-equal; walls of the second of
+    two alternating runs, K1 launches, peak memory), and the node under
+    ros_stub() fed the preset's parameters and the survey's pings (its map
+    equal to the survey's).  Returns ({path: K1 launches}, facts)."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        brick_state_to_numpy,
+    )
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        tables_for_images,
+    )
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    cfg, params, route = _preset_config(name)
+    images, positions, quats = make_inputs(cfg, PRESET_PINGS)
+    positions[:, 2] = PRESET_DEPTH
+    inputs = (images, positions, quats)
+    facts = dict(route=route, golden=_preset_golden(dev, cfg, fuzz, inputs))
+    tables = tables_for_images(images, cfg, None)
+    runs, launches = {}, {}
+    for rb in PRESET_BATCHES * 2:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ((st, stats), n), wall = _wall(lambda: _k1_launches_of(
+            lambda: map_ping_sequence(
+                images, positions, quats, cfg, device=dev, window=16,
+                dtype=torch.float32, tables=tables, records_batch=rb),
+            what=f"13b {name} records_batch {rb}"))
+        runs[rb] = (st, stats, wall, n,
+                    torch.cuda.max_memory_allocated(dev) / 2**20)
+    (st1, stats1, *_), (st16, stats16, *_) = (runs[rb] for rb in PRESET_BATCHES)
+    for k, v in stats1.items():
+        if not np.array_equal(stats16[k], v):
+            raise AssertionError(f"13b {name}: per-ping {k} differ between "
+                                 f"records_batch {PRESET_BATCHES}")
+    s1, s16 = brick_state_to_numpy(st1), brick_state_to_numpy(st16)
+    if any(not np.array_equal(s1[k], s16[k]) for k in s1):
+        raise AssertionError(f"13b {name}: maps differ between "
+                             f"records_batch {PRESET_BATCHES}")
+    for rb, (_, stats, wall, n, peak) in runs.items():
+        launches[f"13b {name} survey records_batch {rb}"] = n
+        facts[f"records_batch_{rb}"] = dict(wall_s=wall, launches=n,
+                                            peak_mib=peak)
+    pairs = [_ros_pair(*m)
+             for m in _survey_msgs(PRESET_PINGS, inputs)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with stub_node(dict(params, device=str(dev))) as node:
+        if node.mapper.cfg != cfg:
+            raise AssertionError(f"13b {name}: the node's config is not the "
+                                 f"preset's")
+        (frames, n), wall = _wall(lambda: _k1_launches_of(
+            lambda: _deliver(node, pairs), what=f"13b {name} node"))
+        if frames != PRESET_PINGS or node.mapper.device != dev:
+            raise AssertionError(f"13b {name}: the node mapped {frames} "
+                                 f"frames on {node.mapper.device}")
+        voxels = _same_voxels(_touched(node.mapper.state), _touched(st1),
+                              0.0, f"13b {name} node vs survey")[0]
+    launches[f"13b {name} node"] = n
+    facts["node"] = dict(wall_s=wall, launches=n, voxels=voxels,
+                         peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
+    g, r = facts["golden"], facts[f"records_batch_{PRESET_BATCHES[0]}"]
+    r16 = facts[f"records_batch_{PRESET_BATCHES[1]}"]
+    print(
+        f"phase 13b {name} ({route}), 500x512, {cfg.voxel_resolution} m "
+        f"voxels, pass at {PRESET_DEPTH} m: first {PRESET_GOLDEN_PINGS} pings "
+        f"against golden on the host ({g['voxels']} voxels, golden "
+        f"{g['golden_s']:.1f} s): float64 exact (max |diff| "
+        f"{g['float64']['max_err']:.3g}, stats equal), float32 probabilities "
+        f"within {g['float32']['max_err']:.3g} ({g['float32']['sym_diff']} "
+        f"voxels one map holds); the z filter drops "
+        f"{g['z_drop_share']:.1%} of the candidates; {PRESET_PINGS}-ping "
+        f"survey, window 16, float32: records_batch {PRESET_BATCHES[0]} "
+        f"{r['wall_s']:.3f} s ({r['launches']} bin_apply, peak "
+        f"{r['peak_mib']:.1f} MiB), {PRESET_BATCHES[1]} {r16['wall_s']:.3f} s "
+        f"({r16['launches']}, {r16['peak_mib']:.1f} MiB), maps and stats "
+        f"bit-equal; node fed the preset's parameters: {PRESET_PINGS} pairs "
+        f"in {wall:.3f} s ({n} bin_apply, peak "
+        f"{facts['node']['peak_mib']:.1f} MiB), {voxels} voxels equal to the "
+        f"survey's [{smi}]",
+        flush=True,
+    )
+    return launches, facts
+
+
+def _long_horizon(dev, smi, fuzz):
+    """13c: LONG_PINGS full-size survey pings: float32 records applied
+    into a float32 and a float64 brick map (1e-5 on every voxel, more than
+    LONG_MIN_VOXELS voxels), and pure float32 against pure float64 (flip
+    rate and over-bar share under FLIP_RATE, 99.5th percentile within
+    1e-5).  Returns ({path: K1 launches}, facts)."""
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+
+    cfg = MapperConfig()
+    drift_in = make_inputs(cfg, LONG_PINGS, seed=1)
+    flip_in = make_inputs(cfg, LONG_PINGS, seed=2)
+    (drift, n_drift), drift_s = _wall(lambda: _k1_launches_of(
+        lambda: fuzz.accumulation_drift(*drift_in, cfg, dev),
+        what="13c accumulation"))
+    (flips, n_flips), flips_s = _wall(lambda: _k1_launches_of(
+        lambda: fuzz.geometry_flips(*flip_in, cfg, dev), what="13c flips"))
+    common = max(1, flips["common"])
+    if (drift["voxels"] <= fuzz.LONG_MIN_VOXELS
+            or drift["max_diff"] > fuzz.LONG_PROB_TOL
+            or flips["sym_diff"] / common >= fuzz.FLIP_RATE
+            or flips["over"] / common >= fuzz.FLIP_RATE
+            or flips["p995_diff"] > fuzz.LONG_PROB_TOL):
+        raise AssertionError(f"13c long horizon: {drift} {flips}")
+    print(
+        f"phase 13c long horizon on {dev}, {LONG_PINGS} pings of 500x512: "
+        f"float32 records into float32 and float64 brick maps, "
+        f"{drift['voxels']} voxels, probabilities within "
+        f"{drift['max_diff']:.3g} (p99 {drift['p99_diff']:.3g}, bar "
+        f"{fuzz.LONG_PROB_TOL}), {n_drift} bin_apply, {drift_s:.2f} s; pure "
+        f"float32 against float64: {flips['common']} common voxels, "
+        f"{flips['sym_diff']} one map holds ({flips['sym_diff'] / common:.3g}"
+        f"), {flips['over']} over the bar ({flips['over'] / common:.3g}; "
+        f"bar {fuzz.FLIP_RATE}), p99.5 {flips['p995_diff']:.3g}, {n_flips} "
+        f"bin_apply, {flips_s:.2f} s [{smi}]",
+        flush=True,
+    )
+    return ({"13c accumulation (f32 records, 2 maps)": n_drift,
+             "13c float32 vs float64 maps": n_flips},
+            dict(accumulation=dict(drift, wall_s=drift_s),
+                 flips=dict(flips, wall_s=flips_s)))
+
+
+def phase_golden(dev, smi):
+    """Phase 13: the port held to its golden oracle on the card (13a the
+    fuzz, 13b the production presets, 13c the long horizon).  Returns
+    ({K1 form: {path: launches}}, facts)."""
+    t0 = time.perf_counter()
+    fuzz = _fuzz()
+    fuzz_launches, facts = _golden_fuzz(dev, smi, fuzz)
+    launches = {"bin_apply": {"13a golden fuzz": fuzz_launches["bin_apply"]},
+                "bin_apply_raw": {
+                    "13a golden fuzz": fuzz_launches["bin_apply_raw"]}}
+    facts = dict(fuzz=facts)
+    for name in PRESET_NAMES:
+        n, facts[name] = _preset_survey(dev, smi, fuzz, name)
+        launches["bin_apply"].update(n)
+    n, facts["long_horizon"] = _long_horizon(dev, smi, fuzz)
+    launches["bin_apply"].update(n)
+    facts["phase_s"] = time.perf_counter() - t0
+    print(f"phase 13 golden oracle on the card: {facts['phase_s']:.1f} s",
+          flush=True)
+    return launches, facts
+
+
 def main() -> int:
     import torch
 
@@ -3865,6 +4210,7 @@ def main() -> int:
         dev, smi, main_voxels, main_stats)
     batch_launches, batched = phase_records_batch(
         dev, smi, main_np, main_stats, raw_stats)
+    golden_launches, golden = phase_golden(dev, smi)
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -3875,15 +4221,17 @@ def main() -> int:
          dict(main=k1_launches, **entry_launches,
               **stream_launches["bin_apply"], **wide_launches,
               **late_launches, **sharded_launches, **replicated_launches,
-              **batch_launches["bin_apply"]),
+              **batch_launches["bin_apply"], **golden_launches["bin_apply"]),
          dict(k1, entry_points=entry, stream=stream, **hash_wide,
               **dense_fold, **sharded, **replicated,
               owner_blocks=late_checks["owner_blocks"],
-              poses=late_checks["poses"], records_batch=batched)),
+              poses=late_checks["poses"], records_batch=batched,
+              golden=golden)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
           **stream_launches["bin_apply_raw"], **raw_sharded_launches,
-          **batch_launches["bin_apply_raw"]},
+          **batch_launches["bin_apply_raw"],
+          **golden_launches["bin_apply_raw"]},
          dict(k1_raw, sharded_raw=late_checks["sharded_raw"])),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",

@@ -385,8 +385,10 @@ def test_port_runs_with_jax_blocked():
     bench's survey and one bench run, the hash backend (pipeline, snapshot, mapper), wide
     keys, the dense backend (pipeline, mapper), the multi-host fold, the
     sharded brick engine (engine, snapshot, mapper), every module of the port (the stream, the node and the debug
-    overlay included), a stream over the same pings, and the CLI's
-    selftest."""
+    overlay included), a stream over the same pings, the CLI's
+    selftest, the port's golden oracle over the same pings, and one
+    trial of the port's golden fuzz (scripts/torch_fuzz_golden.py)
+    through every engine."""
     code = textwrap.dedent("""
         import sys
         for name in list(sys.modules):
@@ -503,6 +505,22 @@ def test_port_runs_with_jax_blocked():
             assert e.code == 0, e.code
         os.environ.update(BENCH_PINGS="1", BENCH_REPS="1", BENCH_LATENCY="0")
         assert cli.main(["bench", "--device", "cpu"]) == 0
+        from sonar_3d_reconstruction_tpu_torch.golden import GoldenMapper
+        from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+            touched_voxels_brick)
+        g = GoldenMapper(cfg)
+        for i in range(3):
+            g.process_ping(images[i], pos[i], q[i])
+        g_pts = g.point_cloud()["points"]
+        assert len(g_pts) == len(pts) > 0
+        assert set(g.map.log_odds) == set(
+            map(tuple, touched_voxels_brick(st)[0].tolist()))
+        sys.path.insert(0, "scripts")
+        import torch_fuzz_golden
+        trial = torch_fuzz_golden.run_trial(
+            2016, device="cpu", dtype=torch.float64)
+        assert trial.failure is None, trial.message
+        assert len(trial.engines) == len(torch_fuzz_golden.ENGINES)
         loaded = [m for m in sys.modules if m.split(".")[0] in
                   ("jax", "jaxlib", "sonar_3d_reconstruction_tpu", "bench")
                   and sys.modules[m] is not None]
