@@ -4164,6 +4164,401 @@ def phase_golden(dev, smi):
     return launches, facts
 
 
+PLAN_PINGS = 256       # phase 14: phase 2's survey
+PLAN_WINDOW = 16
+PLAN_BATCHES = (1, 16)  # 14b: records_batch settings
+PLAN_RUNS = 5          # 14b: alternating timed runs of each setting
+# 14a: the fields of a bench_plan.json entry, all held to the card's plan
+PLAN_FIELDS = ("capacity", "unique_budget", "brick_budget", "lane_budget",
+               "insert_budget", "vox_budget", "dedup_lane_budget",
+               "safe_unique_budget", "safe_brick_budget")
+
+
+def bench_plan_key(cfg, n_pings, window, backend, dense_mode, caps, capacity,
+                   seed):
+    """The key of a ``bench_plan.json`` entry: a copy of the root
+    ``bench.py``'s ``_plan_key`` (bench.py:200-221), which this script
+    reads as data and never imports."""
+    import hashlib
+
+    raw = json.dumps(
+        {
+            "backend": backend,
+            "n_pings": n_pings,
+            "window": window,
+            "dense_mode": dense_mode,
+            "seed": seed,
+            "caps": list(caps),
+            "capacity": capacity,
+            "image": [cfg.image_height, cfg.image_width],
+            "res": cfg.voxel_resolution,
+            "range": [cfg.min_range, cfg.max_range],
+            "fov": cfg.horizontal_fov,
+            "thr": cfg.intensity_threshold,
+        },
+        sort_keys=True,
+    )
+    return hashlib.md5(raw.encode()).hexdigest()[:16]
+
+
+def bench_plan_entry(cfg, images):
+    """``bench_plan.json``'s entry for the JAX bench's default capture key
+    of these images: brick, ``"scalar"``, window PLAN_WINDOW, the caps
+    the port's ``required_*_cap`` give, capacity 1 << 16, seed 0."""
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        required_fan_cap,
+        required_free_cap,
+        required_window_cap,
+    )
+
+    caps = tuple(need(images, cfg, cfg.image_height) for need in (
+        required_fan_cap, required_window_cap, required_free_cap))
+    key = bench_plan_key(cfg, len(images), PLAN_WINDOW, "brick", "scalar",
+                         caps, 1 << 16, 0)
+    with open(os.path.join(ROOT, "bench_plan.json")) as f:
+        return key, json.load(f)[key]
+
+
+@contextlib.contextmanager
+def keep_k1_call(raw, index):
+    """While open, ``grid.brick``'s K1 wrapper of the form ``raw`` keeps
+    copies of the inputs of its call number ``index`` (from 0) in the
+    dict it yields (``args``, ``kw``)."""
+    from sonar_3d_reconstruction_tpu_torch.grid import brick
+
+    name = "bin_apply_raw" if raw else "bin_apply"
+    kept, calls = {}, [0]
+    fn = getattr(brick, name)
+
+    def wrapped(s_flat, s_pay, starts, rows_cur, **kw):
+        if calls[0] == index:
+            kept.update(kw=dict(kw), args=tuple(
+                t.clone() for t in (s_flat, s_pay, starts, rows_cur)))
+        calls[0] += 1
+        return fn(s_flat, s_pay, starts, rows_cur, **kw)
+
+    setattr(brick, name, wrapped)
+    try:
+        yield kept
+    finally:
+        setattr(brick, name, fn)
+
+
+@contextlib.contextmanager
+def keep_scan_stats():
+    """While open, ``map_ping_sequence``'s brick scans also append their
+    per-ping stats (host arrays) to the list it yields, one a scan."""
+    from sonar_3d_reconstruction_tpu_torch import pipeline
+
+    scans = []
+    fn = pipeline.scan_pings_brick
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        scans.append(out[1])
+        return out
+
+    pipeline.scan_pings_brick = wrapped
+    try:
+        yield scans
+    finally:
+        pipeline.scan_pings_brick = fn
+
+
+def _causes(stats):
+    """{cause: pings that report it} of one scan's stats."""
+    return {k: int(stats[k].sum()) for k in (
+        "overflowed", "unique_overflow", "batch_overflow",
+        "insert_overflow") if k in stats}
+
+
+def _tune_on_card(dev, smi, cfg, images, positions, quats, tables):
+    """14a.  Returns (the tuned plan, a raw plan, K1 launches, facts)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+    from sonar_3d_reconstruction_tpu_torch.utils.autotune import (
+        snug_budgets_brick,
+        tune_sequence,
+    )
+
+    _reset_counts()
+    plan, tune_s = _wall(lambda: tune_sequence(
+        images, positions, quats, cfg, backend="brick", window=PLAN_WINDOW,
+        dense_mode="scalar", dtype=torch.float32, device=dev))
+    launches = bin_apply.launches
+    key, want = bench_plan_entry(cfg, images)
+    differ = {k: (plan.get(k), want.get(k)) for k in PLAN_FIELDS
+              if plan.get(k) != want.get(k)}
+    if differ or launches == 0:
+        raise AssertionError(f"14a: the card's plan differs from "
+                             f"bench_plan.json[{key}] in {differ} "
+                             f"({launches} K1 launches)")
+    # the raw window's plan: the snug formulas on a raw warm-up at the
+    # default budgets (tune_sequence warms up on unique records, as the
+    # JAX package's does, so its lane budget is too small for raw lanes)
+    eff = {}
+    (_, warm), raw_s = _wall(lambda: map_ping_sequence(
+        images, positions, quats, cfg, device=dev, window=PLAN_WINDOW,
+        dtype=torch.float32, dense_mode="pallas-raw", budgets={},
+        effective=eff, initial_capacity=plan["capacity"], tables=tables))
+    raw_plan = dict(snug_budgets_brick(warm, PLAN_WINDOW,
+                                       eff["unique_budget"],
+                                       eff["brick_budget"]),
+                    backend="brick", window=PLAN_WINDOW,
+                    dense_mode="pallas-raw", capacity=eff["capacity"])
+    print(f"phase 14a tune: {PLAN_PINGS} pings, window {PLAN_WINDOW}, "
+          f"float32, on the card in {tune_s:.3f} s ({launches} bin_apply "
+          f"launches): plan == bench_plan.json[{key}] on "
+          f"{', '.join(PLAN_FIELDS)} ("
+          + ", ".join(f"{k}={plan[k]}" for k in PLAN_FIELDS)
+          + f"); raw plan from a raw warm-up in {raw_s:.3f} s: brick "
+          f"{raw_plan['brick_budget']}, lanes {raw_plan['lane_budget']}, "
+          f"inserts {raw_plan['insert_budget']} [{smi}]", flush=True)
+    return plan, raw_plan, launches, dict(
+        tune_s=tune_s, plan={k: plan[k] for k in PLAN_FIELDS},
+        bench_plan_key=key, raw_plan={k: raw_plan[k] for k in PLAN_FIELDS},
+        raw_warmup_s=raw_s)
+
+
+def _padded_k1(dev, smi, run, stats):
+    """14b: K1 and K1-raw on the widest count-sized window and on the same
+    window of the budgeted run (padded bricks and EMPTY32 lanes): the
+    kernel bit-equal to its plain version on both, device time each."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+
+    out = {}
+    for mode, raw in (("pallas", False), ("pallas-raw", True)):
+        kernel, plain = ((k1.bin_apply_raw, k1.bin_apply_raw_reference)
+                         if raw else (k1.bin_apply, k1.bin_apply_reference))
+        w = int(np.argmax(stats[mode]["batch_n_lanes"])) // PLAN_WINDOW
+        windows = {}
+        for budgeted in (False, True):
+            with keep_k1_call(raw, w) as kept:
+                run(mode, 16, budgeted)
+            windows[budgeted] = kept
+        facts = {}
+        for budgeted, kept in windows.items():
+            args, kw = kept["args"], kept["kw"]
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"14b: {kernel.__name__} != plain on "
+                                     f"window {w} (budgets {budgeted})")
+            nbytes, _ = k1_bytes(args, raw, kw["B"])
+            ms = _device_ms(lambda: kernel(*args, **kw), "bin_apply_kernel")
+            facts["budgeted" if budgeted else "count_sized"] = dict(
+                NB=args[3].shape[0], L=args[0].shape[0], ms=ms,
+                bound_ms=_bound_ms(nbytes),
+                plain_ms=_time_ms(lambda: plain(*args, **kw), reps=3))
+        c, b = facts["count_sized"], facts["budgeted"]
+        print(f"phase 14b {kernel.__name__} == plain (tolerance "
+              f"{KERNEL_TOL}) on window {w}: count-sized NB={c['NB']} "
+              f"L={c['L']} {c['ms']:.4f} ms (bound {c['bound_ms']:.4f}), "
+              f"budgeted NB={b['NB']} L={b['L']} {b['ms']:.4f} ms (bound "
+              f"{b['bound_ms']:.4f}): padding costs "
+              f"{b['ms'] - c['ms']:+.4f} ms a launch [{smi}]", flush=True)
+        out[kernel.__name__] = facts
+    return out
+
+
+def _plan_runs(dev, smi, survey, plans, main_voxels, main_stats, raw_stats):
+    """14b.  ``survey``: (cfg, images, positions, quats, fan tables).
+    Returns ({K1 form: {path: launches}}, facts, run)."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import (
+        touched_voxels_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.pipeline import (
+        STAT_DTYPES,
+        map_ping_sequence,
+    )
+
+    cfg, images, positions, quats, tables = survey
+    settings = [(mode, rb, budgeted) for mode in ("pallas", "pallas-raw")
+                for rb in PLAN_BATCHES for budgeted in (False, True)]
+
+    def run(mode, rb, budgeted):
+        # both from a map of the plan's capacity: no growth in either
+        kw = (dict(budgets=plans[mode]) if budgeted
+              else dict(initial_capacity=plans[mode]["capacity"]))
+        return map_ping_sequence(
+            images, positions, quats, cfg, device=dev, window=PLAN_WINDOW,
+            dtype=torch.float32, dense_mode=mode, records_batch=rb,
+            tables=tables, **kw)
+
+    def name(mode, rb, budgeted):
+        return (f"map_ping_sequence {mode} rb={rb} "
+                f"{'budgets' if budgeted else 'count-sized'}")
+
+    facts, launches = {}, {"bin_apply": {}, "bin_apply_raw": {}}
+    reference, stats_of = None, {}
+    for s in settings:
+        mode, rb, budgeted = s
+        raw = mode == "pallas-raw"
+        torch.cuda.reset_peak_memory_stats(dev)
+        (st, stats), n = _k1_launches_of(lambda: run(*s), raw=raw,
+                                         what=name(*s))
+        other = bin_apply.launches if raw else bin_apply.raw_launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        if other or (budgeted and n != PLAN_PINGS // PLAN_WINDOW):
+            raise AssertionError(f"{name(*s)}: {n} launches of its K1 form, "
+                                 f"{other} of the other")
+        _same_stats(stats, raw_stats if raw else main_stats, name(*s),
+                    keys=tuple(STAT_DTYPES))
+        if budgeted and (stats["overflowed"].any()
+                         or not (stats["batch_n_need"] > 0).any()):
+            raise AssertionError(f"{name(*s)}: a window overflowed")
+        if reference is None:
+            keys, log_odds = touched_voxels_brick(st)
+            if not (np.array_equal(keys, main_voxels[0])
+                    and np.array_equal(log_odds, main_voxels[1])):
+                raise AssertionError(f"{name(*s)}: voxels differ from "
+                                     f"phase 2's")
+            reference = st
+        for k in STATE_FIELDS:
+            if not torch.equal(getattr(st, k), getattr(reference, k)):
+                raise AssertionError(f"{name(*s)}: state {k} differs")
+        stats_of.setdefault(mode, stats)
+        launches["bin_apply_raw" if raw else "bin_apply"][f"14b {name(*s)}"] = n
+        facts[name(*s)] = dict(k1_launches=n, peak_mib=peak / 2**20)
+    del st, reference
+    for s in settings:
+        _, n_launch, n_sync = _launches_and_syncs(lambda: run(*s))
+        facts[name(*s)].update(launches_per_ping=n_launch / PLAN_PINGS,
+                               syncs_per_run=n_sync)
+    walls = {s: [] for s in settings}
+    for r in range(PLAN_RUNS):
+        for s in (settings if r % 2 == 0 else settings[::-1]):
+            walls[s].append(_wall(lambda: run(*s))[1])
+    for s in settings:
+        q1, med, q3 = np.percentile(walls[s], [25, 50, 75])
+        f = facts[name(*s)]
+        f.update(wall_s=med, wall_q1_s=q1, wall_q3_s=q3)
+        print(f"phase 14b {name(*s)}: wall {med:.3f} s (q1-q3 {q1:.3f}-"
+              f"{q3:.3f}, {PLAN_RUNS} alternating runs); "
+              f"{f['launches_per_ping']:.1f} kernel launches a ping, "
+              f"{f['syncs_per_run']} stream syncs a run; peak memory "
+              f"{f['peak_mib']:.1f} MiB; "
+              f"{'bin_apply_raw' if s[0] == 'pallas-raw' else 'bin_apply'} "
+              f"launches {f['k1_launches']}; voxels == phase 2's, stats == "
+              f"phase {'2b' if s[0] == 'pallas-raw' else '2'}'s [{smi}]",
+              flush=True)
+    facts["k1_windows"] = _padded_k1(dev, smi, run, stats_of)
+    return launches, facts, run
+
+
+def _stale_plans(dev, smi, survey, run, plans):
+    """14c: the tuned plan with every budget cut to a quarter (unique
+    records) and the unique-record plan on raw lanes: each replays to the
+    map of the count-sized run; the scans' causes.  Returns facts."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    plan = plans["pallas"]
+    quarter = dict(plan)
+    for k, v in plan.items():
+        if k.endswith("budget") and not k.startswith("safe") and v:
+            quarter[k] = ([max(1, x // 4) for x in v] if isinstance(v, list)
+                          else max(1, v // 4))
+    (want, _), _ = _wall(lambda: run("pallas", 16, False))
+    facts = {}
+    for label, stale, mode in (("quarter", quarter, "pallas"),
+                               ("unique-record plan, raw lanes", plan,
+                                "pallas-raw")):
+        with keep_scan_stats() as scans:
+            (st, stats), wall = _wall(lambda: map_ping_sequence(
+                *survey[1:4], survey[0], device=dev, window=PLAN_WINDOW,
+                dtype=torch.float32, dense_mode=mode, records_batch=16,
+                tables=survey[4], budgets=stale))
+        same = all(torch.equal(getattr(st, k), getattr(want, k))
+                   for k in STATE_FIELDS)
+        if not same or stats["overflowed"].any() or len(scans) < 2:
+            raise AssertionError(f"14c {label}: map equal {same}, "
+                                 f"{len(scans)} scans")
+        causes = [_causes(x) for x in scans]
+        facts[label] = dict(scans=len(scans), causes=causes, wall_s=wall)
+        print(f"phase 14c stale plan ({label}): {len(scans)} scans in "
+              f"{wall:.3f} s, pings reporting each cause by scan {causes}; "
+              f"map bit-equal to the count-sized run [{smi}]", flush=True)
+    return facts
+
+
+def _plan_cli(smi, cli_voxels):
+    """14d: ``tune`` and ``map-bag --budgets`` (offline and streaming) in
+    subprocesses on phase 5d's bag; each map's voxels equal 5d's."""
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    bag, plan_path = (os.path.join(work, f) for f in ("cli.db3", "plan.json"))
+    if os.path.exists(plan_path):
+        os.unlink(plan_path)
+    _, tune_s = _cli("tune", bag, "--window", "16", "--out", plan_path)
+    with open(plan_path) as f:
+        plan = json.load(f)
+    if plan["backend"] != "brick" or plan["window"] != 16:
+        raise AssertionError(f"14d: tune wrote {plan}")
+    facts = dict(tune_process_s=tune_s, plan=plan)
+    for label, extra in (("offline", ["--offline"]),
+                         ("streaming", ["--chunk", "16"])):
+        out, secs = _cli("map-bag", bag, *extra, "--budgets", plan_path)
+        summary = json.loads(out.splitlines()[-1])
+        if (summary["num_voxels"] != cli_voxels
+                or summary["bin_apply_launches"] == 0):
+            raise AssertionError(f"14d map-bag {label} --budgets: {summary}, "
+                                 f"phase 5d's map {cli_voxels} voxels")
+        facts[label] = dict(process_s=secs, num_voxels=summary["num_voxels"],
+                            bin_apply_launches=summary["bin_apply_launches"])
+    print(f"phase 14d CLI: tune --window 16 on 5d's bag {tune_s:.1f} s "
+          f"(unique {plan['unique_budget']}, brick {plan['brick_budget']}, "
+          f"capacity {plan['capacity']}); map-bag --budgets --offline "
+          f"{facts['offline']['process_s']:.1f} s and streaming "
+          f"{facts['streaming']['process_s']:.1f} s, each {cli_voxels} "
+          f"voxels as 5d's, bin_apply launches "
+          f"{facts['offline']['bin_apply_launches']} / "
+          f"{facts['streaming']['bin_apply_launches']}; every exit code 0 "
+          f"[{smi}]", flush=True)
+    return facts
+
+
+def phase_budgets(dev, smi, main_voxels, main_stats, raw_stats, cli_voxels):
+    """Phase 14: the deployment budget plans on the card (14a tune the
+    survey and hold the plan to bench_plan.json, 14b map with plans in
+    both dense modes at records_batch 1 and 16, 14c stale plans, 14d the
+    CLI).  Returns ({K1 form: {path: launches}}, facts)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        tables_for_images,
+    )
+
+    t0 = time.perf_counter()
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, PLAN_PINGS)
+    tables = tables_for_images(images, cfg)
+    survey = (cfg, images, positions, quats, tables)
+    plan, raw_plan, tune_launches, facts = _tune_on_card(dev, smi, *survey)
+    plans = {"pallas": plan, "pallas-raw": raw_plan}
+    launches, facts["runs"], run = _plan_runs(
+        dev, smi, survey, plans, main_voxels, main_stats, raw_stats)
+    launches["bin_apply"]["14a tune_sequence"] = tune_launches
+    facts["stale"] = _stale_plans(dev, smi, survey, run, plans)
+    facts["cli"] = _plan_cli(smi, cli_voxels)
+    torch.cuda.synchronize()
+    facts["phase_s"] = time.perf_counter() - t0
+    print(f"phase 14 budget plans on the card: {facts['phase_s']:.1f} s",
+          flush=True)
+    return launches, facts
+
+
 def main() -> int:
     import torch
 
@@ -4211,6 +4606,9 @@ def main() -> int:
     batch_launches, batched = phase_records_batch(
         dev, smi, main_np, main_stats, raw_stats)
     golden_launches, golden = phase_golden(dev, smi)
+    budget_launches, budgets = phase_budgets(
+        dev, smi, main_voxels, main_stats, raw_stats,
+        entry["cli_map_bag"]["num_voxels"])
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -4221,18 +4619,22 @@ def main() -> int:
          dict(main=k1_launches, **entry_launches,
               **stream_launches["bin_apply"], **wide_launches,
               **late_launches, **sharded_launches, **replicated_launches,
-              **batch_launches["bin_apply"], **golden_launches["bin_apply"]),
+              **batch_launches["bin_apply"], **golden_launches["bin_apply"],
+              **budget_launches["bin_apply"]),
          dict(k1, entry_points=entry, stream=stream, **hash_wide,
               **dense_fold, **sharded, **replicated,
               owner_blocks=late_checks["owner_blocks"],
               poses=late_checks["poses"], records_batch=batched,
-              golden=golden)),
+              golden=golden, budgets=budgets)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
           **stream_launches["bin_apply_raw"], **raw_sharded_launches,
           **batch_launches["bin_apply_raw"],
-          **golden_launches["bin_apply_raw"]},
-         dict(k1_raw, sharded_raw=late_checks["sharded_raw"])),
+          **golden_launches["bin_apply_raw"],
+          **budget_launches["bin_apply_raw"]},
+         dict(k1_raw, sharded_raw=late_checks["sharded_raw"],
+              budgets_k1_windows=budgets["runs"]["k1_windows"][
+                  "bin_apply_raw"])),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",
          "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, {}, k2),

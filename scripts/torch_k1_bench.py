@@ -116,7 +116,7 @@ def build_all(variants):
 def capture_real_windows(dev):
     """The widest window (most record lanes) of each dense mode on the
     bench survey: {raw: (s_flat, s_pay, starts, rows)}."""
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
     cfg = MapperConfig()
@@ -225,7 +225,7 @@ def time_builds(builds, inputs, rounds=3):
 
 def e2e(dev, launches, pairs):
     """Walls of the 256-ping survey in both modes, K1 builds in turns."""
-    from bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
     from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
     cfg = MapperConfig()

@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch port (port of
-``sonar_3d_reconstruction_tpu.cli`` without ``tune``).
+``sonar_3d_reconstruction_tpu.cli``).
 
   python -m sonar_3d_reconstruction_tpu_torch selftest [--device D]
       The reference library self-test scenario (scripts/3d_mapper.py:653-683):
@@ -12,7 +12,8 @@
   python -m sonar_3d_reconstruction_tpu_torch map-bag BAG [--chunk C]
       [--publish] [--config YAML] [--param K=V] [--window W]
       [--backend brick|brick-sharded|hash] [--shards N]
-      [--save-map OUT.npz] [--save-cloud OUT.pc2] [--device D]
+      [--save-map OUT.npz] [--save-cloud OUT.pc2] [--budgets PLAN.json]
+      [--device D]
       Replay the bag through the streaming runtime (stream.StreamingMapper,
       brick backend unless --backend says otherwise): pings are paired
       with odometry as they arrive and
@@ -28,6 +29,18 @@
       brick-sharded); prints one JSON line (pairs, voxels, load and map
       seconds, pings/s, realtime factor, the device and the binning
       kernel's launches).
+
+  python -m sonar_3d_reconstruction_tpu_torch tune BAG [--out PLAN.json]
+      [--config YAML] [--param K=V] [--backend brick|hash] [--window W]
+      [--dense-mode MODE] [--device D]
+      Map the bag once at the default budgets and write a deployment
+      budget plan (utils/autotune.tune_sequence; stdout without --out).
+      ``map-bag --budgets PLAN.json`` (streaming or --offline) then maps
+      at its fixed widths, taking the plan's backend and window unless
+      --backend / --window say otherwise (a plan the other way round is an
+      error).  Plans of this package and the JAX package's are the same
+      JSON, and either package reads either's.  --budgets warns and is
+      ignored with --backend brick-sharded.
 
   python -m sonar_3d_reconstruction_tpu_torch query MAP.npz X,Y,Z [...]
       [--device D]
@@ -137,13 +150,46 @@ def selftest_pings(mapper):
         )
 
 
+def _plan(args: argparse.Namespace) -> Optional[Dict]:
+    """The ``--budgets`` plan, with ``args.backend`` and ``args.window``
+    taken from it where the flags were not given (brick and 8 without a
+    plan); SystemExit when a flag contradicts it."""
+    plan = None
+    if args.budgets:
+        with open(args.budgets) as f:
+            plan = json.load(f)
+    if args.backend is None:
+        args.backend = plan.get("backend", "brick") if plan else "brick"
+    if args.window is None:
+        args.window = plan.get("window", 8) if plan else 8
+    if plan is None:
+        return None
+    if args.backend == "brick-sharded":
+        print("warning: --budgets applies to the brick and hash backends "
+              "only; ignoring it", file=sys.stderr)
+        return None
+    for key in ("backend", "window"):
+        if plan.get(key, getattr(args, key)) != getattr(args, key):
+            raise SystemExit(
+                f"--budgets plan was tuned for {key}={plan.get(key)!r} but "
+                f"map-bag is running --{key} {getattr(args, key)}; omit "
+                f"--{key} to take the plan's"
+            )
+    return plan
+
+
 def cmd_map_bag(args: argparse.Namespace) -> int:
     from sonar_3d_reconstruction_tpu_torch.config import load_config
 
     device = _device(args)
     cfg, stream_cfg = load_config(args.config, _parse_overrides(args.param))
+    plan = _plan(args)
     if args.offline:
-        return _map_bag_offline(args, device, cfg, stream_cfg)
+        return _map_bag_offline(args, device, cfg, stream_cfg, plan)
+    if plan is not None and plan.get("window") is not None:
+        # the stream clamps its window to the chunk: a plan tuned for
+        # window W needs chunks of at least W
+        args.chunk = max(args.chunk, int(plan["window"]))
     import torch
 
     from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
@@ -161,7 +207,7 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
     mapper = StreamingMapper(
         cfg, stream_cfg, chunk_size=args.chunk, window=args.window,
         dtype=torch.float32, publish=pub_cb, backend=args.backend,
-        device=device, mesh=mesh,
+        device=device, mesh=mesh, budgets=plan,
     )
     k1_before = bin_apply.launches
     t0 = time.perf_counter()
@@ -192,9 +238,10 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
     return 0
 
 
-def _map_bag_offline(args, device, cfg, stream_cfg) -> int:
+def _map_bag_offline(args, device, cfg, stream_cfg, plan=None) -> int:
     """Batch path: decode and pair the whole bag, then map it in windows
-    (pipeline.map_ping_sequence)."""
+    (pipeline.map_ping_sequence, at the plan's budgets when there is
+    one)."""
     import torch
 
     from sonar_3d_reconstruction_tpu_torch.io.bag import load_bag_sequence
@@ -224,6 +271,7 @@ def _map_bag_offline(args, device, cfg, stream_cfg) -> int:
         state, _ = map_ping_sequence(
             images, positions, quats, cfg, device=device,
             dtype=torch.float32, window=args.window, backend=args.backend,
+            budgets=plan,
         )
     num_voxels = int(state.used.sum())  # waits for the device
     t_map = time.perf_counter() - t0
@@ -297,6 +345,50 @@ def cmd_make_bag(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_tune(args: argparse.Namespace) -> int:
+    """Map the bag once -> a deployment budget plan (JSON), for
+    ``map-bag --budgets``."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.config import load_config
+    from sonar_3d_reconstruction_tpu_torch.io.bag import load_bag_sequence
+    from sonar_3d_reconstruction_tpu_torch.utils.autotune import tune_sequence
+
+    device = _device(args)
+    cfg, stream_cfg = load_config(args.config, _parse_overrides(args.param))
+    images, positions, quats, _ = load_bag_sequence(
+        args.bag,
+        sonar_topic=stream_cfg.sonar_topic,
+        odometry_topic=stream_cfg.odometry_topic,
+        slop=stream_cfg.sync_slop,
+    )
+    plan = tune_sequence(
+        images, positions, quats, cfg, backend=args.backend,
+        window=args.window, dense_mode=args.dense_mode, dtype=torch.float32,
+        device=device,
+    )
+    text = json.dumps(plan, indent=1, sort_keys=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+        print(f"budget plan ({len(images)} pings) -> {args.out}",
+              file=sys.stderr)
+    else:
+        print(text)
+    return 0
+
+
+def _dense_mode(text: str) -> str:
+    """argparse type of ``--dense-mode``: a JAX dense_mode spelling."""
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import parse_dense_mode
+
+    try:
+        parse_dense_mode(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from e
+    return text
+
+
 def cmd_query(args: argparse.Namespace) -> int:
     """Point-query a saved map snapshot (reference SimpleOctree
     get_probability semantics: never-updated voxels answer p=0.5)."""
@@ -357,9 +449,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     p.add_argument(
         "--backend", choices=("brick", "brick-sharded", "hash"),
-        default="brick",
-        help="map backend: the brick table (default), the brick table "
-        "sharded over a mesh of devices, or the per-voxel hash",
+        default=None,
+        help="map backend: the brick table (the default, or the --budgets "
+        "plan's backend), the brick table sharded over a mesh of devices, "
+        "or the per-voxel hash",
     )
     p.add_argument(
         "--shards", type=int, default=None, metavar="N",
@@ -376,9 +469,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="streaming path: pings per mapped chunk",
     )
     p.add_argument(
-        "--window", type=int, default=8,
+        "--window", type=int, default=None,
         help="pings per window of the batched apply (both paths); 1 = "
-        "per-ping",
+        "per-ping.  Default: 8, or the --budgets plan's window",
+    )
+    p.add_argument(
+        "--budgets", default=None, metavar="PLAN.json",
+        help="deployment budget plan from `tune` (either package's): map "
+        "at its fixed widths; a stale plan replays safely",
     )
     p.add_argument(
         "--publish", action="store_true",
@@ -389,6 +487,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     p.add_argument("--save-map", default=None, metavar="OUT.npz")
     p.add_argument("--save-cloud", default=None, metavar="OUT.pc2")
+    _add_device(p)
+
+    p = sub.add_parser(
+        "tune", help="map a bag once -> deployment budget plan (JSON)"
+    )
+    p.add_argument("bag")
+    p.add_argument("--config", default=None, help="reference-schema YAML")
+    p.add_argument(
+        "--param", action="append", default=[], metavar="KEY=VALUE",
+        help="config override (highest priority), repeatable",
+    )
+    p.add_argument("--backend", choices=("brick", "hash"), default="brick")
+    p.add_argument("--window", type=int, default=8)
+    p.add_argument(
+        "--dense-mode", type=_dense_mode, default="pallas",
+        help="brick window layout the plan is for (a JAX dense_mode "
+        "spelling; \"row\" adds a vox budget)",
+    )
+    p.add_argument("--out", default=None, metavar="PLAN.json")
     _add_device(p)
 
     p = sub.add_parser(
@@ -418,6 +535,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "map-bag": cmd_map_bag,
         "make-bag": cmd_make_bag,
         "query": cmd_query,
+        "tune": cmd_tune,
     }[args.cmd](args)
 
 

@@ -22,7 +22,13 @@ default) takes per-frame unique records; ``"pallas-raw"`` takes raw
 candidates (``frame_records(raw=True)``), which K1's raw form sums per
 (brick, frame, offset) slot into the same aggregates, so both modes give
 the same map.  In raw mode the per-frame unique-voxel stats come from the
-kernel and ``batch_n_lanes`` counts candidate lanes.
+kernel and ``batch_n_lanes`` counts candidate lanes.  Every spelling of
+the JAX package is accepted (``parse_dense_mode``): its XLA layouts
+``"scalar"``, ``"bfv"`` and ``"row"`` are bit-identical to ``"pallas"``
+there, so here they all run K1 on unique records, and a spelling with
+``raw`` runs K1's raw form; the ``-tbN`` / ``-cN`` suffixes that size the
+TPU kernel's tiles are checked and recorded, while K1's tile comes from
+``kernels.bin_apply.tile_bricks`` (shared memory).
 
 A window too wide for compact keys takes two-word brick codes
 (``apply_brick_records_wide``, unique records only): step 1 ranks the
@@ -33,13 +39,20 @@ A ``touched`` bitmask per brick keeps the reference's touched-voxel
 semantics: a never-updated voxel (p = 0.5, not reported) differs from an
 updated voxel whose log-odds is 0.0.
 
-Window sizes come from the actual counts (eager PyTorch has no static
-shapes), so the JAX package's lane, brick, insert and unique budgets and
-their overflows do not exist here.  A window fails all-or-nothing, leaving
-the table untouched and the state poisoned, when a bucket would overflow
-(the host grows the table and replays) or on the fatal key-range and
-count-packing errors.  Table updates are out of place: each window returns
-new tensors and never writes into the state it was given.
+Without budgets a window is sized from its actual counts, which it reads
+to the host (a few reads a window), and a failed window (a bucket would
+overflow, or the fatal key-range and count-packing errors) is skipped on
+the host, leaving the table untouched and the state poisoned.  With the
+JAX package's budgets (``brick_budget``, ``lane_budget``,
+``insert_budget``, ``vox_budget``) a window runs at those fixed widths and
+reads nothing: padded bricks carry ``EMPTY_HI`` keys and empty K1 ranges,
+every overflow is a device flag under the JAX package's stat names
+(``unique_overflow``, ``batch_overflow``, ``insert_overflow``), and a
+failed window drops its writes on the device and poisons the state, so
+later windows are no-ops until the host reads the flags, grows the right
+budget or the table, and replays.  Both give the same map.  Table updates
+are out of place: each window returns new tensors and never writes into
+the state it was given.
 """
 
 from __future__ import annotations
@@ -52,6 +65,8 @@ import torch
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
 from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     BUCKET_SLOTS,
+    _commit_failed,
+    _write_dropping,
     bucket_lookup,
     commit_insert,
     empty_key_rows,
@@ -65,6 +80,7 @@ from sonar_3d_reconstruction_tpu_torch.kernels.bin_apply import (
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
     CompactRecords,
     UniqueRecords,
+    _fit,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.logodds import probability_to_log_odds
 from sonar_3d_reconstruction_tpu_torch.ops.packing import (
@@ -84,20 +100,61 @@ DEFAULT_BRICK_BITS = 2  # 4x4x4 = 64 voxels per brick
 
 _BRICK_BITS_BY_VOLUME = {8: 1, 64: 2, 512: 3}
 
-# window apply modes: unique records, or raw candidates summed by K1
-DENSE_MODES = ("pallas", "pallas-raw")
+# the JAX package's window apply modes: three XLA layouts and the Pallas
+# kernel (K1 here), unique records, or raw candidates summed by K1
+DENSE_MODES = ("scalar", "bfv", "row", "pallas", "pallas-raw")
+
+
+class DenseMode(NamedTuple):
+    """A parsed ``dense_mode`` spelling."""
+
+    layout: str              # "scalar", "bfv", "row" or "pallas"
+    raw: bool                # raw candidates (K1's raw form)
+    tile: Optional[int]      # the TPU kernel's -tbN (recorded, unused)
+    chunk: Optional[int]     # the TPU kernel's -cN (recorded, unused)
+
+
+def parse_dense_mode(dense_mode: str) -> DenseMode:
+    """Parse a JAX ``dense_mode`` spelling: one of ``DENSE_MODES``, where
+    the ``"pallas"`` forms may carry the JAX package's ``-raw``, ``-tbN``
+    and ``-cN`` parts in any order (N a positive int), as its window
+    apply parses them.  ValueError on any other string."""
+    layout, *parts = str(dense_mode).split("-")
+    raw, tile, chunk, ok = False, None, None, layout in DENSE_MODES
+
+    def count(text):
+        return int(text) if text.isdigit() and int(text) > 0 else None
+
+    for part in parts:
+        if layout != "pallas":
+            ok = False
+        elif part == "raw" and not raw:
+            raw = True
+        elif part.startswith("tb") and tile is None and count(part[2:]):
+            tile = count(part[2:])
+        elif part.startswith("c") and chunk is None and count(part[1:]):
+            chunk = count(part[1:])
+        else:
+            ok = False
+    if not ok:
+        raise ValueError(
+            f"dense_mode {dense_mode!r} is not accepted; use one of "
+            f"{DENSE_MODES} (the pallas forms may add -tbN / -cN)"
+        )
+    return DenseMode(layout, raw, tile, chunk)
 
 
 def is_raw_mode(dense_mode: str) -> bool:
-    """Whether ``dense_mode`` takes raw candidates; raises ValueError on a
-    mode the port does not accept (the JAX package's tile-size suffixes
-    such as ``-tb16`` size TPU tiles and mean nothing here)."""
-    if dense_mode not in DENSE_MODES:
-        raise ValueError(
-            f"dense_mode {dense_mode!r} is not accepted; use one of "
-            f"{DENSE_MODES}"
-        )
-    return dense_mode == "pallas-raw"
+    """Whether ``dense_mode`` takes raw candidates (K1's raw form); raises
+    ValueError on a spelling the JAX package does not accept."""
+    return parse_dense_mode(dense_mode).raw
+
+
+def default_brick_budget(window: int, unique_budget: int) -> int:
+    """The JAX package's default distinct-brick budget of a window: at
+    least 4 voxels a brick, the window factor capped at 8, at least
+    8192."""
+    return max(8192, (min(window, 8) * unique_budget) // 6)
 
 
 class BrickGridState(NamedTuple):
@@ -179,17 +236,31 @@ def apply_brick_records_compact(
     box_min,                # (3,) brick-aligned box-origin voxel key
     box_bits: Tuple[int, int, int],
     dense_mode: str = "pallas",
+    brick_budget: Optional[int] = None,
+    lane_budget: Optional[int] = None,
+    insert_budget: Optional[int] = None,
+    vox_budget: Optional[int] = None,
 ) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
     """Apply one window of B frames of box-key records to the brick map.
 
     ``recs`` are unique records, or raw candidates when ``dense_mode`` is
-    ``"pallas-raw"``.  Returns (new state, per-frame stats of shape (B,)):
+    a raw spelling.  Returns (new state, per-frame stats of shape (B,)):
     ``num_occupied`` and ``num_free`` (unique voxels by type),
     ``num_candidates`` (valid emissions), ``overflowed``, ``range_fail``,
     ``pack_overflow``, and the window's ``batch_n_bricks`` /
     ``batch_n_lanes`` (record lanes; candidate lanes in raw mode) sizes.
+
+    Any of the budgets runs the fixed-width window (module docstring):
+    ``brick_budget`` NB rows (default ``default_brick_budget(B, U)``),
+    ``lane_budget`` L record lanes (default all B * U), ``insert_budget``
+    new bricks (default NB), and ``vox_budget`` distinct voxels, which only
+    the JAX package's ``"row"`` layout bounds (default L).  ``box_min`` may
+    then be a (3,) device tensor, so nothing is read to the host.  The
+    stats gain ``unique_overflow``, ``batch_overflow``, ``insert_overflow``,
+    ``batch_n_unique`` and ``batch_n_need``, as in the JAX package.
     """
-    raw = is_raw_mode(dense_mode)
+    mode = parse_dense_mode(dense_mode)
+    raw = mode.raw
     B, U = recs.key.shape
     bb = state.brick_bits
     o = 3 * bb
@@ -197,7 +268,10 @@ def apply_brick_records_compact(
     if sum(box_bits) + o + f_bits > 31:
         raise ValueError(f"box bits {box_bits} + {B} frames exceed 31 key bits")
     device = state.log_odds.device
-    box_min = torch.as_tensor(np.asarray(box_min), device=device)
+    box_min = (box_min if isinstance(box_min, torch.Tensor)
+               else torch.as_tensor(np.asarray(box_min))).to(device)
+    budgeted = (brick_budget, lane_budget, insert_budget,
+                vox_budget) != (None,) * 4
 
     # (brick, FRAME, offset) flat key: the frame field sits between brick
     # and offset, so one sort groups each brick's records by frame
@@ -220,6 +294,37 @@ def apply_brick_records_compact(
         torch.ones(1, dtype=torch.bool, device=device),
         brick_id[1:] != brick_id[:-1],
     ])
+    # raw candidates carry count 1 each and are summed unpacked: no packing
+    # width to overflow
+    pack_overflow = (torch.zeros((), dtype=torch.bool, device=device) if raw
+                     else recs.pack_fail.any())
+    if budgeted:
+        nb = brick_budget or default_brick_budget(B, U)
+        lb = min(B * U, max(lane_budget or B * U, 1))
+        n_lanes = seg_valid.sum()
+        n_bricks = (new_brick & seg_valid).sum()
+        is_start = (new_brick & seg_valid)[:lb]
+        starts, c_bid, valid_b = _compact_starts(
+            is_start, brick_id[:lb], n_bricks, torch.clamp(n_lanes, max=lb),
+            nb, EMPTY32,
+        )
+        corner = unpack_box_brick(torch.where(valid_b, c_bid, 0), box_min,
+                                  box_bits, bb)
+        g_hi, g_lo, g_ok = pack_brick_keys(corner, bb)
+        auxs = auxs._replace(
+            range_fail=auxs.range_fail | (valid_b & ~g_ok).any())
+        return _apply_window_budgeted(
+            state, cfg, torch.where(valid_b, g_hi, EMPTY_HI),
+            torch.where(valid_b, g_lo, EMPTY_HI), valid_b, s_flat[:lb],
+            s_pay[:lb], starts, B=B, f_bits=f_bits, o=o, raw=raw,
+            pack_overflow=pack_overflow,
+            frame_overflow=(recs.n_unique > U).any(),
+            lanes_overflow=n_lanes > lb, brick_overflow=n_bricks > nb,
+            rec_valid=recs.valid, rec_n_occ=recs.n_occ, auxs=auxs,
+            n_lanes=n_lanes, n_bricks=n_bricks, insert_budget=insert_budget,
+            vox_cap=(min(lb, max(vox_budget or lb, 1))
+                     if mode.layout == "row" else None),
+        )
     n_lanes, n_bricks = torch.stack(
         [seg_valid.sum(), (new_brick & seg_valid).sum()]
     ).tolist()
@@ -236,11 +341,6 @@ def apply_brick_records_compact(
     corner = unpack_box_brick(brick_id[first], box_min, box_bits, bb)
     c_hi, c_lo, g_ok = pack_brick_keys(corner, bb)
     auxs = auxs._replace(range_fail=auxs.range_fail | (~g_ok).any())
-
-    # raw candidates carry count 1 each and are summed unpacked: no packing
-    # width to overflow
-    pack_overflow = (torch.zeros((), dtype=torch.bool, device=device) if raw
-                     else recs.pack_fail.any())
     return _apply_window_tail(
         state, cfg, c_hi, c_lo, s_flat, s_pay, starts,
         B=B, f_bits=f_bits, o=o, raw=raw, pack_overflow=pack_overflow,
@@ -249,16 +349,44 @@ def apply_brick_records_compact(
     )
 
 
+def _compact_starts(is_start, brick_id, n_bricks, n_val, nb, empty):
+    """The fixed-width brick list of a budgeted window: (starts (NB+1,),
+    brick ids (NB,), valid rows (NB,)).  ``is_start`` marks the first lane
+    of each brick in the sorted lane prefix, ``brick_id`` each lane's
+    brick; the starts move to the front in lane order by a cumsum scatter
+    (no host read), and the rows past the window's bricks get empty
+    ranges at ``n_val``, the valid lanes inside the prefix."""
+    device = is_start.device
+    lane = torch.arange(is_start.shape[0], device=device)
+    rank = torch.cumsum(is_start, dim=0) - 1
+    tgt = torch.where(is_start & (rank < nb), rank, nb)
+    pos = torch.zeros(nb + 1, dtype=torch.int64, device=device)
+    pos[tgt] = lane
+    bid = torch.full((nb + 1,), empty, dtype=torch.int64, device=device)
+    bid[tgt] = brick_id
+    bid = bid[:nb]
+    valid_b = (torch.arange(nb, device=device) < n_bricks) & (bid != empty)
+    starts = torch.cat([torch.where(valid_b, pos[:nb], n_val), n_val[None]])
+    return starts, bid, valid_b
+
+
 def apply_brick_records_wide(
     state: BrickGridState,
     recs: UniqueRecords,    # stacked over B frames: (B, U), brick codes
     auxs: FrameAux,         # stacked over B frames
     cfg: MapperConfig,
+    brick_budget: Optional[int] = None,
+    lane_budget: Optional[int] = None,
+    insert_budget: Optional[int] = None,
+    vox_budget: Optional[int] = None,
 ) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
     """Apply one window of B frames of two-word unique records (brick
     codes, ``frame_records`` without a box) to the brick map: the path of
-    a window too wide for compact keys.  Same stats, failure contract and
-    map as ``apply_brick_records_compact``.
+    a window too wide for compact keys.  Same stats, budgets, failure
+    contract and map as ``apply_brick_records_compact`` (``vox_budget`` is
+    accepted and bounds nothing: the JAX package's wide window has no
+    row layout); with budgets its ``torch.unique`` still reads the
+    window's distinct bricks to the host.
 
     The records reach K1 in its documented (brick, frame, offset) order:
     ``torch.unique`` ranks the window's distinct bricks in code order (the
@@ -282,10 +410,37 @@ def apply_brick_records_wide(
     flat = (rank << (f_bits + o)) | (frame << o) | (code & ((1 << o) - 1))
     s_flat, order = torch.sort(flat)
     count = recs.count.reshape(-1)
+    payload = torch.where(valid, (count << 16) | recs.n_occ.reshape(-1), 0)
+    if (brick_budget, lane_budget, insert_budget,
+            vox_budget) != (None,) * 4:
+        nb = brick_budget or default_brick_budget(B, U)
+        lb = min(B * U, max(lane_budget or B * U, 1))
+        n_lanes = valid.sum()
+        n_bricks = (uniq != EMPTY64).sum()
+        n_val = torch.clamp(n_lanes, max=lb)
+        valid_b = torch.arange(nb, device=device) < n_bricks
+        starts = torch.minimum(torch.searchsorted(
+            s_flat[:lb] >> (f_bits + o), torch.arange(nb + 1, device=device)
+        ), n_val)
+        c_hi, c_lo = code_words(_fit(uniq, nb, EMPTY64) << o, brick=True)
+        # the payload packs count in 16 bits: a voxel with 2^16+ candidates
+        # in one frame is fatal, except in a frame that overflowed its
+        # unique budget (its lanes mean nothing), as in the JAX package
+        frame_ok = (recs.n_unique <= U).repeat_interleave(U)
+        return _apply_window_budgeted(
+            state, cfg, torch.where(valid_b, c_hi, EMPTY_HI),
+            torch.where(valid_b, c_lo, EMPTY_HI), valid_b, s_flat[:lb],
+            payload[order[:lb]], starts, B=B, f_bits=f_bits, o=o, raw=False,
+            pack_overflow=(frame_ok & valid & (count > 0xFFFF)).any(),
+            frame_overflow=(recs.n_unique > U).any(),
+            lanes_overflow=n_lanes > lb, brick_overflow=n_bricks > nb,
+            rec_valid=recs.valid, rec_n_occ=recs.n_occ, auxs=auxs,
+            n_lanes=n_lanes, n_bricks=n_bricks, insert_budget=insert_budget,
+            vox_cap=None,
+        )
     # the payload packs count in 16 bits: a voxel with 2^16+ candidates in
     # one frame is fatal, as in the JAX package
     pack_overflow = (valid & (count > 0xFFFF)).any()
-    payload = torch.where(valid, (count << 16) | recs.n_occ.reshape(-1), 0)
     n_lanes, n_bricks = torch.stack(
         [valid.sum(), (uniq != EMPTY64).sum()]
     ).tolist()
@@ -377,6 +532,83 @@ def _apply_window_tail(
         num_candidates=auxs.n_valid,
     )
     return new_state, stats
+
+
+def _apply_window_budgeted(
+    state: BrickGridState,
+    cfg: MapperConfig,
+    c_hi, c_lo, valid_b, s_flat, s_pay, starts,
+    *,
+    B, f_bits, o, raw, pack_overflow, frame_overflow, lanes_overflow,
+    brick_overflow, rec_valid, rec_n_occ, auxs, n_lanes, n_bricks,
+    insert_budget, vox_cap,
+) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
+    """``_apply_window_tail`` at fixed widths with no host read: table ops
+    at the NB brick rows (padded rows, ``valid_b`` false, are neither
+    inserted nor written), K1 over the L record lanes, and a commit that
+    every failure cause turns into dropped writes, as in the JAX package.
+    ``vox_cap`` bounds the window's distinct voxels (the JAX ``"row"``
+    layout's budget; None: unbounded)."""
+    vol = state.brick_volume
+    cap = state.capacity
+    dtype = state.log_odds.dtype
+
+    bucket, found, found_slot, fill = bucket_lookup(state.key_rows, c_hi, c_lo)
+    plan = plan_insert(state.key_rows, c_hi, c_lo, valid_b & ~found, bucket,
+                       fill, budget=insert_budget)
+    slots = torch.where(valid_b, torch.where(found, found_slot, plan.slots),
+                        cap)
+    # padded and unplaced rows read the last slot; their K1 ranges are
+    # empty or the window fails, and their writes are dropped
+    slots_c = torch.clamp(slots, max=cap - 1)
+    rows_cur = state.log_odds[slots_c]
+    touched_cur = state.touched[slots_c]
+
+    kw = dict(B=B, vol=vol, f_bits=f_bits, o=o, cfg=cfg)
+    if raw:
+        v, upd, num_occupied, num_free = bin_apply_raw(
+            s_flat, s_pay, starts, rows_cur, **kw
+        )
+    else:
+        v, upd = bin_apply(s_flat, s_pay, starts, rows_cur, **kw)
+        rec_occ = rec_valid & (rec_n_occ > 0)
+        num_occupied = rec_occ.sum(dim=1)
+        num_free = (rec_valid & ~rec_occ).sum(dim=1)
+    upd = upd & valid_b[:, None]
+    n_unique = upd.sum()
+    batch_overflow = brick_overflow | lanes_overflow
+    if vox_cap is not None:
+        batch_overflow = batch_overflow | (n_unique > vox_cap)
+    failed = (batch_overflow | plan.overflowed | auxs.range_fail.any()
+              | frame_overflow | pack_overflow | state.poisoned)
+    n_new = (upd & ~_unpack_touched(touched_cur, vol)).sum()
+    w_slots = torch.where(failed, cap, slots)
+    new_state = BrickGridState(
+        key_rows=commit_insert(state.key_rows, plan, abort=failed),
+        log_odds=_write_dropping(state.log_odds, w_slots, v),
+        touched=_write_dropping(state.touched, w_slots,
+                                touched_cur | _pack_touched(upd)),
+        **_commit_failed(state, failed, n_new, auxs, dtype),
+    )
+
+    def per_frame(x):
+        return x.expand(B)
+
+    return new_state, {
+        "num_occupied": torch.where(failed, 0, num_occupied),
+        "num_free": torch.where(failed, 0, num_free),
+        "num_candidates": torch.where(failed, 0, auxs.n_valid),
+        "overflowed": per_frame(failed),
+        "unique_overflow": per_frame(frame_overflow),
+        "batch_overflow": per_frame(batch_overflow),
+        "insert_overflow": per_frame(plan.budget_overflow),
+        "batch_n_unique": per_frame(n_unique),
+        "batch_n_bricks": per_frame(n_bricks),
+        "batch_n_lanes": per_frame(n_lanes),
+        "batch_n_need": per_frame(plan.n_need),
+        "pack_overflow": per_frame(pack_overflow),
+        "range_fail": auxs.range_fail,
+    }
 
 
 def rehash_bricks(state: BrickGridState, new_capacity: int) -> BrickGridState:

@@ -19,12 +19,22 @@ The hash backend keys the table by voxel codes (``pack_keys``) and keeps
 one log-odds value per slot.  A ping (``update_hash_grid``) or a window of
 pings (``apply_records_batched``) applies its per-frame unique records
 (ops/dedup.dedup_frame) with the reference's averaged adaptive update.
-There are no budgets: every record width comes from the counts.  An update
-fails all-or-nothing, returning its input state with ``poisoned`` set,
-when a bucket would overflow (the host grows the table with ``rehash`` and
-replays) or on keys outside the packable range (fatal).  Updates are out
-of place: each returns new tensors and never writes into the state it was
-given.
+Without budgets every record width comes from the counts (a few host
+reads an update).  An update fails all-or-nothing, returning its input
+state with ``poisoned`` set, when a bucket would overflow (the host grows
+the table with ``rehash`` and replays) or on keys outside the packable
+range (fatal).  Updates are out of place: each returns new tensors and
+never writes into the state it was given.
+
+With budgets (``update_hash_grid(unique_budget=)``,
+``apply_records_batched(batch_budget=, lane_budget=, insert_budget=)``;
+the defaults below are the JAX package's) an update runs at those fixed
+widths and reads nothing to the host: every overflow is a device flag
+under the JAX package's stat names (``unique_overflow``,
+``batch_overflow``, ``insert_overflow``), and a failed update drops its
+writes on the device and poisons the state, so later updates are no-ops
+until the host reads the flags, grows the right budget or the table, and
+replays.
 """
 
 from __future__ import annotations
@@ -59,6 +69,33 @@ from sonar_3d_reconstruction_tpu_torch.ops.packing import (
 BUCKET_SLOTS = 128
 # An empty slot's unpacked key (the sharded map's ``keys`` view).
 EMPTY = 0x7FFFFFFF
+
+# Largest default unique budget of one frame (doubled on overflow).
+DEFAULT_UNIQUE_BUDGET = 1 << 17
+
+
+def default_unique_budget(n_candidates: int) -> int:
+    """The JAX package's default unique budget of a ping with
+    ``n_candidates`` candidate lanes: the power of two at or above it,
+    between 16 and ``DEFAULT_UNIQUE_BUDGET``."""
+    budget = 1 << max(
+        3, min(n_candidates - 1, DEFAULT_UNIQUE_BUDGET - 1)
+    ).bit_length()
+    return min(budget, DEFAULT_UNIQUE_BUDGET)
+
+
+def default_batch_budget(window: int, unique_budget: int) -> int:
+    """The JAX package's default distinct-voxel budget of a window:
+    consecutive pings overlap, so three frames' budgets cover a window."""
+    return min(window * unique_budget, 3 * unique_budget)
+
+
+def effective_unique_budget(tables, cfg: MapperConfig) -> int:
+    """The unique budget an engine runs with when none was given: the
+    default for the tables' candidate lanes a ping."""
+    return default_unique_budget(
+        tables.candidates_per_ping(cfg.occupied_window)
+    )
 
 
 def empty_key_rows(capacity: int, device) -> torch.Tensor:
@@ -100,7 +137,10 @@ class InsertPlan(NamedTuple):
     pos_c: torch.Tensor      # (U,) in-bucket position (clamped)
     fits: torch.Tensor       # (U,) bool key is active and fits its bucket
     slots: torch.Tensor      # (U,) slots in RECORD order (capacity = none)
-    overflowed: torch.Tensor  # () bool a bucket would exceed BUCKET_SLOTS
+    overflowed: torch.Tensor  # () bool a bucket would exceed BUCKET_SLOTS,
+    #                            or the insert budget was exceeded
+    n_need: torch.Tensor      # () int64 keys that needed an insert
+    budget_overflow: torch.Tensor  # () bool n_need exceeded the budget
 
 
 def plan_insert(
@@ -110,31 +150,41 @@ def plan_insert(
     need: torch.Tensor,
     bucket: torch.Tensor,
     fill: torch.Tensor,
+    budget: Optional[int] = None,
 ) -> InsertPlan:
     """Plan a collision-free insert of mutually distinct new keys.
 
     Keys flagged by ``need`` (distinct and absent from the table) are
     sorted by bucket and ranked within equal buckets; key i's slot is
     bucket*128 + fill + rank.  Nothing is written here: the caller commits
-    with ``commit_insert`` only when the plan did not overflow.
+    with ``commit_insert``, unless the plan overflowed or it aborts.
+
+    ``budget`` (the JAX package's insert budget) keeps only the first
+    ``budget`` lanes of the bucket order, where the needed keys come
+    first: more needed keys than that set ``budget_overflow`` (and
+    ``overflowed``).
     """
     u = u_hi.shape[0]
+    ib = u if budget is None else min(int(budget), u)
     device = u_hi.device
     capacity = key_rows.shape[0] * BUCKET_SLOTS
-    idx = torch.arange(u, device=device)
+    idx = torch.arange(ib, device=device)
 
     ins_key = torch.where(need, bucket, U32)
     s_bkt, s_orig = torch.sort(ins_key, stable=True)
+    s_bkt, s_orig = s_bkt[:ib], s_orig[:ib]
     s_hi, s_lo, s_fill = u_hi[s_orig], u_lo[s_orig], fill[s_orig]
     new_b = torch.cat([
         torch.ones(1, dtype=torch.bool, device=device), s_bkt[1:] != s_bkt[:-1]
-    ])
+    ])[:ib]
     start = running_max(torch.where(new_b, idx, -1))
     rank = idx - start
     active = s_bkt != U32
     pos = s_fill + rank
     fits = active & (pos < BUCKET_SLOTS)
-    overflowed = (active & ~fits).any()
+    n_need = need.sum()
+    budget_overflow = n_need > ib
+    overflowed = (active & ~fits).any() | budget_overflow
     pos_c = torch.clamp(pos, max=BUCKET_SLOTS - 1)
     slot = s_bkt * BUCKET_SLOTS + pos_c
     # slots back in record order; lanes that do not fit write the dump
@@ -143,19 +193,25 @@ def plan_insert(
     slots[torch.where(fits, s_orig, u)] = slot
     return InsertPlan(
         s_hi=s_hi, s_lo=s_lo, s_bkt=s_bkt, pos_c=pos_c, fits=fits,
-        slots=slots[:u], overflowed=overflowed,
+        slots=slots[:u], overflowed=overflowed, n_need=n_need,
+        budget_overflow=budget_overflow,
     )
 
 
-def commit_insert(key_rows: torch.Tensor, plan: InsertPlan) -> torch.Tensor:
+def commit_insert(
+    key_rows: torch.Tensor, plan: InsertPlan, abort=None
+) -> torch.Tensor:
     """A new table with the planned keys written (both words in one
     scatter into the interleaved rows); lanes that do not fit write a dump
-    word past the end, which is cut off."""
+    word past the end, which is cut off.  ``abort`` (a () bool tensor)
+    sends every write to the dump, so the table comes back unchanged with
+    no host read."""
     n_buckets = key_rows.shape[0]
     flat_n = n_buckets * 2 * BUCKET_SLOTS
     base = plan.s_bkt * (2 * BUCKET_SLOTS) + plan.pos_c
-    tgt_hi = torch.where(plan.fits, base, flat_n)
-    tgt_lo = torch.where(plan.fits, base + BUCKET_SLOTS, flat_n)
+    write = plan.fits if abort is None else plan.fits & ~abort
+    tgt_hi = torch.where(write, base, flat_n)
+    tgt_lo = torch.where(write, base + BUCKET_SLOTS, flat_n)
     flat = torch.cat([key_rows.reshape(-1), key_rows.new_empty(1)])
     flat[torch.cat([tgt_hi, tgt_lo])] = torch.cat([plan.s_hi, plan.s_lo])
     return flat[:flat_n].reshape(n_buckets, 2 * BUCKET_SLOTS)
@@ -310,17 +366,85 @@ def apply_frame_records(
     return applied, stats
 
 
+def _write_dropping(values: torch.Tensor, slots: torch.Tensor,
+                    new: torch.Tensor) -> torch.Tensor:
+    """``values`` with ``new`` written at ``slots`` (along dim 0), out of
+    place; slots at or past the end (the capacity) are dropped."""
+    cap = values.shape[0]
+    out = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+    out[torch.clamp(slots, max=cap)] = new
+    return out[:cap]
+
+
+def _commit_failed(state, failed, n_new, auxs, dtype):
+    """The all-or-nothing fields of a budgeted update: bounds widened and
+    ``used`` grown only where nothing ``failed``; ``poisoned`` set where
+    it did."""
+    cmin, cmax = auxs.cmin.to(dtype), auxs.cmax.to(dtype)
+    if cmin.dim() > 1:
+        cmin, cmax = cmin.amin(dim=0), cmax.amax(dim=0)
+    return dict(
+        min_bounds=torch.where(failed, state.min_bounds,
+                               torch.minimum(state.min_bounds, cmin)),
+        max_bounds=torch.where(failed, state.max_bounds,
+                               torch.maximum(state.max_bounds, cmax)),
+        used=state.used + torch.where(failed, 0, n_new),
+        poisoned=state.poisoned | failed,
+    )
+
+
+def _apply_frame_budgeted(
+    state: HashGridState, rec: UniqueRecords, aux, cfg: MapperConfig
+) -> Tuple[HashGridState, Dict[str, torch.Tensor]]:
+    """``apply_frame_records`` over budgeted records, on the device only:
+    a unique-budget or bucket overflow, a key out of range or a poisoned
+    state drops every write and poisons the state."""
+    capacity = state.capacity
+    dtype = state.log_odds.dtype
+    valid = rec.valid
+    bucket, found, found_slot, fill = bucket_lookup(state.key_rows, rec.hi, rec.lo)
+    plan = plan_insert(state.key_rows, rec.hi, rec.lo, valid & ~found,
+                       bucket, fill)
+    failed = rec.overflowed | plan.overflowed | aux.range_fail | state.poisoned
+    slots = torch.where(valid, torch.where(found, found_slot, plan.slots),
+                        capacity)
+    lo_sum, count, occupied = chain_terms(rec.count, rec.n_occ, dtype, cfg)
+    cur = state.log_odds[torch.clamp(slots, max=capacity - 1)]
+    new_val = finalize_voxel_updates(cur, lo_sum, count, occupied, cfg)
+    new_state = HashGridState(
+        key_rows=commit_insert(state.key_rows, plan, abort=failed),
+        log_odds=_write_dropping(
+            state.log_odds, torch.where(failed, capacity, slots), new_val),
+        **_commit_failed(state, failed, plan.fits.sum(), aux, dtype),
+    )
+    zero = torch.zeros((), dtype=torch.int64, device=slots.device)
+    return new_state, {
+        "num_occupied": torch.where(failed, zero, (valid & occupied).sum()),
+        "num_free": torch.where(failed, zero, (valid & ~occupied).sum()),
+        "num_candidates": torch.where(failed, zero, aux.n_valid),
+        "overflowed": failed,
+        "unique_overflow": rec.overflowed,
+        "range_fail": aux.range_fail,
+    }
+
+
 def update_hash_grid(
     state: HashGridState,
     candidates: Dict[str, torch.Tensor],
     cfg: MapperConfig,
+    unique_budget: Optional[int] = None,
 ) -> Tuple[HashGridState, Dict[str, torch.Tensor]]:
     """Apply one ping's candidate emissions (``backproject_ping``'s dict)
     to the hash map.  Returns (state, stats: ``num_occupied`` /
     ``num_free`` unique voxels by type, ``num_candidates`` valid emissions,
     ``overflowed``, ``range_fail``, ``batch_n_unique``).  A frame that
     would overflow a bucket, has keys out of the packable range, or meets
-    a poisoned state returns the input state with ``poisoned`` set."""
+    a poisoned state returns the input state with ``poisoned`` set.
+
+    With ``unique_budget`` the frame's records are that many lanes wide
+    and nothing is read to the host (module docstring); the stats are then
+    the JAX package's: ``unique_overflow`` in place of
+    ``batch_n_unique``."""
     from sonar_3d_reconstruction_tpu_torch.ops.records import FrameAux
 
     dtype = state.log_odds.dtype
@@ -330,7 +454,8 @@ def update_hash_grid(
     valid = candidates["valid"]
     range_fail = (valid & ~in_range).any()
     valid = valid & in_range
-    rec = dedup_frame(hi, lo, candidates["is_occupied"], valid, brick=False)
+    rec = dedup_frame(hi, lo, candidates["is_occupied"], valid, brick=False,
+                      unique_budget=unique_budget)
     # bounds over updated voxel centres (reference 3d_mapper.py:112-115),
     # reduced over int keys: k -> (k + 0.5) * res is exact and monotone
     res = torch.full((), cfg.voxel_resolution, dtype=dtype, device=pts.device)
@@ -345,6 +470,8 @@ def update_hash_grid(
         range_fail=range_fail,
         n_valid=n_valid,
     )
+    if unique_budget is not None:
+        return _apply_frame_budgeted(state, rec, aux, cfg)
     return apply_frame_records(state, rec, aux, cfg)
 
 
@@ -353,6 +480,9 @@ def apply_records_batched(
     recs: UniqueRecords,   # stacked over B frames: (B, U), voxel codes
     auxs,                  # ops.records.FrameAux stacked over B frames
     cfg: MapperConfig,
+    batch_budget: Optional[int] = None,
+    lane_budget: Optional[int] = None,
+    insert_budget: Optional[int] = None,
 ) -> Tuple[HashGridState, Dict[str, torch.Tensor]]:
     """Apply a window of B frames with one set of table operations.
 
@@ -369,7 +499,16 @@ def apply_records_batched(
     the window's distinct voxels ``batch_n_unique``).  All-or-nothing: a
     bucket overflow, a key out of range or a poisoned state returns the
     input state with ``poisoned`` set and every frame ``overflowed``.
+
+    Any of ``batch_budget`` (distinct voxels; default
+    ``default_batch_budget(B, U)``), ``lane_budget`` (record lanes;
+    default twice that) or ``insert_budget`` (new keys) runs the JAX
+    package's fixed-width window instead (``_apply_batched_budgeted``):
+    the same map, nothing read to the host, and the JAX package's stats.
     """
+    if (batch_budget, lane_budget, insert_budget) != (None, None, None):
+        return _apply_batched_budgeted(state, recs, auxs, cfg, batch_budget,
+                                       lane_budget, insert_budget)
     B, U = recs.hi.shape
     n = B * U
     dtype, device = state.log_odds.dtype, state.log_odds.device
@@ -438,6 +577,106 @@ def apply_records_batched(
         "batch_n_unique": torch.full((B,), n_unique, device=device),
     }
     return new_state, stats
+
+
+def _apply_batched_budgeted(
+    state: HashGridState, recs: UniqueRecords, auxs, cfg: MapperConfig,
+    batch_budget: Optional[int], lane_budget: Optional[int],
+    insert_budget: Optional[int],
+) -> Tuple[HashGridState, Dict[str, torch.Tensor]]:
+    """``apply_records_batched`` at the JAX package's fixed widths: the
+    sort runs over all B*U lanes, the chain over the first Lb, and the
+    table ops over ``batch_budget`` compacted voxels; the chain takes all
+    B - 1 rank passes.  A batch, lane, insert, unique or bucket overflow,
+    a key out of range or a poisoned state drops every write and poisons
+    the state, all on the device."""
+    B, U = recs.hi.shape
+    n = B * U
+    capacity = state.capacity
+    dtype, device = state.log_odds.dtype, state.log_odds.device
+    ub = batch_budget or default_batch_budget(B, U)
+    lb = min(n, max(lane_budget or 2 * ub, ub))
+    rec_valid = recs.valid
+    code = torch.where(rec_valid.reshape(-1),
+                       key_code(recs.hi.reshape(-1), recs.lo.reshape(-1),
+                                brick=False), EMPTY64)
+    s_code, order = torch.sort(code, stable=True)
+    idx = torch.arange(n, device=device)
+    new_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                         s_code[1:] != s_code[:-1]])
+    seg_valid = s_code != EMPTY64
+    rank = idx - running_max(torch.where(new_seg, idx, -1))
+    rec_start = new_seg & seg_valid
+    n_unique = rec_start.sum()
+    n_lanes = seg_valid.sum()
+    batch_overflow = n_unique > ub
+    lanes_overflow = n_lanes > lb
+
+    # each distinct voxel's first lane in the Lb prefix, compacted to ub
+    # lanes in key order (lane Lb where there is none)
+    start_l = rec_start[:lb]
+    r = torch.cumsum(start_l, dim=0) - 1
+    c_pos = torch.full((ub + 1,), lb, dtype=torch.int64, device=device)
+    c_pos[torch.where(start_l & (r < ub), r, ub)] = idx[:lb]
+    c_pos = c_pos[:ub]
+    lane = torch.arange(ub, device=device)
+    valid_u = lane < n_unique
+    c_hi, c_lo = code_words(s_code[torch.clamp(c_pos, max=lb - 1)],
+                            brick=False)
+    c_hi = torch.where(valid_u, c_hi, EMPTY_HI)
+    c_lo = torch.where(valid_u, c_lo, EMPTY_HI)
+    bucket, found, found_slot, fill = bucket_lookup(state.key_rows, c_hi, c_lo)
+    plan = plan_insert(state.key_rows, c_hi, c_lo, valid_u & ~found, bucket,
+                       fill, budget=insert_budget)
+    frame_overflow = (recs.n_unique > U).any()
+    failed = (batch_overflow | lanes_overflow | plan.overflowed
+              | auxs.range_fail.any() | frame_overflow | state.poisoned)
+    slots = torch.where(valid_u, torch.where(found, found_slot, plan.slots),
+                        capacity)
+
+    # the pre-window value seeds each voxel's first lane; a rank-s lane's
+    # value comes from its left neighbour at pass s
+    cur = _write_dropping(
+        state.log_odds.new_zeros(lb), torch.where(valid_u, c_pos, lb),
+        state.log_odds[torch.clamp(slots, max=capacity - 1)])
+    lo_sum, count, occupied = chain_terms(
+        recs.count.reshape(-1)[order[:lb]], recs.n_occ.reshape(-1)[order[:lb]],
+        dtype, cfg,
+    )
+    rank_l = rank[:lb]
+    v = finalize_voxel_updates(cur, lo_sum, count, occupied, cfg)
+    for s in range(1, B):
+        v_s = finalize_voxel_updates(torch.cat([v[:1], v[:-1]]), lo_sum,
+                                     count, occupied, cfg)
+        v = torch.where(rank_l == s, v_s, v)
+    # a voxel's final value sits at its segment's last lane
+    next_start = torch.cat([c_pos[1:], c_pos.new_full((1,), lb)])
+    end_pos = torch.where(lane + 1 < n_unique, next_start - 1, n_lanes - 1)
+    new_unique = torch.where(valid_u, v[torch.clamp(end_pos, 0, lb - 1)], 0)
+
+    new_state = HashGridState(
+        key_rows=commit_insert(state.key_rows, plan, abort=failed),
+        log_odds=_write_dropping(
+            state.log_odds, torch.where(failed, capacity, slots), new_unique),
+        **_commit_failed(state, failed, plan.fits.sum(), auxs, dtype),
+    )
+    rec_occ = rec_valid & (recs.n_occ > 0)
+
+    def per_frame(x):
+        return x.expand(B)
+
+    return new_state, {
+        "num_occupied": torch.where(failed, 0, rec_occ.sum(dim=1)),
+        "num_free": torch.where(failed, 0, (rec_valid & ~rec_occ).sum(dim=1)),
+        "num_candidates": torch.where(failed, 0, auxs.n_valid),
+        "overflowed": per_frame(failed),
+        "unique_overflow": per_frame(frame_overflow),
+        "batch_overflow": per_frame(batch_overflow | lanes_overflow),
+        "insert_overflow": per_frame(plan.budget_overflow),
+        "batch_n_unique": per_frame(n_unique),
+        "batch_n_need": per_frame(plan.n_need),
+        "range_fail": auxs.range_fail,
+    }
 
 
 def plan_fresh_insert(capacity: int, hi, lo, need) -> Tuple[torch.Tensor, InsertPlan]:

@@ -238,16 +238,25 @@ def resolve_capped_tables(
     cfg: MapperConfig,
     range_bins: int,
     bearing_bins: int,
+    fan_cap="auto",
+    window_cap="auto",
+    free_cap="auto",
 ) -> FanTables:
-    """Tables with every lattice cap sized exactly for THESE images (the
-    JAX package's "auto" caps): identical emissions, smaller lattice."""
-    if len(images) == 0:
-        return build_fan_tables(cfg, range_bins, bearing_bins)
+    """Tables for these images, each lattice cap as the JAX package
+    resolves it: ``"auto"`` (the default) sizes it exactly for THESE
+    images (identical emissions, smaller lattice), an int pins it (a
+    plan's ``fan_cap`` / ``window_cap`` / ``free_cap``), and None or 0
+    keeps the config's worst case."""
+    P = len(images)
+    if fan_cap == "auto":
+        fan_cap = required_fan_cap(images, cfg, range_bins) if P else 0
+    if window_cap == "auto":
+        window_cap = required_window_cap(images, cfg, range_bins) if P else 0
+    if free_cap == "auto":
+        free_cap = required_free_cap(images, cfg, range_bins) if P else 0
     return build_fan_tables(
-        cfg, range_bins, bearing_bins,
-        fan_cap=required_fan_cap(images, cfg, range_bins),
-        window_cap=required_window_cap(images, cfg, range_bins),
-        free_cap=required_free_cap(images, cfg, range_bins),
+        cfg, range_bins, bearing_bins, fan_cap=int(fan_cap or 0),
+        window_cap=int(window_cap or 0), free_cap=int(free_cap or 0),
     )
 
 

@@ -37,15 +37,23 @@ alone.  On the H100 one (16, N) sort along the last axis costs as much as
 one flat sort with the frame folded above the key and under half of 16
 row sorts (PERF.md), so the batch sorts its rows in place.
 
-The JAX functions truncate records to a static unique budget.  Here the
-output keeps the full candidate width (valid records first, empty lanes
-after), so there is no budget and no overflow; the window engine slices it
-to the window's largest ``n_unique``.
+Without a budget the output keeps the full candidate width (valid records
+first, empty lanes after), so nothing overflows; the count-sized window
+engine slices it to the window's largest ``n_unique``.  With a
+``unique_budget`` U every function returns exactly U lanes, as the JAX
+package's do, and reads nothing to the host: the compaction takes only the
+records whose segment ends within the first ``lane_budget`` sorted lanes
+(default ``min(N, 2U)``, at least U), and a frame whose valid candidates
+exceed that slice reports ``n_unique = N + 1``.  A frame with more than U
+records sets ``overflowed`` on the device and its window is rejected;
+its lanes still hold what the JAX package's hold, codes included, since
+a window counts them (the grouped forms' lanes then differ from the JAX
+package's, and their counts are not the JAX package's garbage).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,6 +80,11 @@ class UniqueRecords(NamedTuple):
     def valid(self) -> torch.Tensor:
         return self.hi != EMPTY_HI
 
+    @property
+    def overflowed(self) -> torch.Tensor:
+        """More records than lanes: the frame's unique budget overflowed."""
+        return self.n_unique > self.hi.shape[-1]
+
 
 def running_max(x: torch.Tensor) -> torch.Tensor:
     """Inclusive running maximum along dim 0: the segment rebase and rank
@@ -86,6 +99,38 @@ def _first_lane(x: torch.Tensor, value) -> torch.Tensor:
                       device=x.device)
 
 
+def _budget_slice(n: int, unique_budget: int, lane_budget: int) -> int:
+    """The compaction slice of a budgeted dedup over N candidate lanes:
+    ``lane_budget`` (``min(N, 2U)`` when 0), at least U, at most N."""
+    if lane_budget <= 0:
+        lane_budget = min(n, 2 * unique_budget)
+    return min(n, max(lane_budget, unique_budget))
+
+
+def _in_slice(rec, seg_valid, n_unique, unique_budget, lane_budget):
+    """(records inside the compaction slice, n_unique with a slice
+    overflow reported as N + 1); unchanged without a budget."""
+    if unique_budget is None:
+        return rec, n_unique
+    n = rec.shape[-1]
+    lb = _budget_slice(n, unique_budget, lane_budget)
+    rec = rec & (torch.arange(n, device=rec.device) < lb)
+    return rec, torch.where(seg_valid.sum(dim=-1) > lb, n + 1, n_unique)
+
+
+def _fit(x: torch.Tensor, width: Optional[int], fill) -> torch.Tensor:
+    """(..., N) lanes cut or padded with ``fill`` to ``width`` (None: as
+    they are)."""
+    n = x.shape[-1]
+    if width is None or width == n:
+        return x
+    if width < n:
+        return x[..., :width]
+    pad = torch.full(x.shape[:-1] + (width - n,), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x, pad], dim=-1)
+
+
 def _segment_ends(vox: torch.Tensor) -> torch.Tensor:
     """Lanes whose sorted voxel differs from the next lane's (the last lane
     of each row always ends a segment): compares within rows only."""
@@ -93,14 +138,14 @@ def _segment_ends(vox: torch.Tensor) -> torch.Tensor:
     return torch.cat([differs, _first_lane(differs, True)], dim=-1)
 
 
-def _dedup_codes(code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor):
+def _dedup_codes(code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor,
+                 unique_budget: Optional[int], lane_budget: int):
     """The two-word dedup on (..., N) 60-bit codes, row by row: (record
-    codes in ascending order, count, n_occ, valid lanes, n_unique, the
+    codes in ascending order, count, n_occ, record lanes, n_unique, the
     sort's lane permutation, each record's segment-end lane in sorted
     order), each of width N (unused lanes after the records hold garbage
-    the caller masks with the valid lanes).  ``perm[end]`` is each
+    the caller masks with the record lanes).  ``perm[end]`` is each
     record's input lane."""
-    n = code.shape[-1]
     skey = torch.where(valid, (code << 1) | occ.to(torch.int64), EMPTY64)
     skey, perm = torch.sort(skey, dim=-1)
 
@@ -108,18 +153,47 @@ def _dedup_codes(code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor):
     # invalid lanes sort past every record, so their sentinel's low bit
     # only reaches cumsum lanes beyond the last record
     csum_occ = torch.cumsum(skey & 1, dim=-1)
-    rec = _segment_ends(vox) & (skey != EMPTY64)
-    n_unique = rec.sum(dim=-1)
+    seg_valid = skey != EMPTY64
+    rec = _segment_ends(vox) & seg_valid
+    rec, n_unique = _in_slice(rec, seg_valid, rec.sum(dim=-1), unique_budget,
+                              lane_budget)
 
-    # records are distinct voxels, so the unstable sort fixes their order,
-    # which is their end lanes' order; the sentinel tail is masked below
-    c_vox, end = torch.sort(torch.where(rec, vox, EMPTY64 >> 1), dim=-1)
+    if unique_budget is None:
+        # records are distinct voxels, so the unstable sort fixes their
+        # order, which is their end lanes' order; the sentinel tail is
+        # masked below
+        c_vox, end = torch.sort(torch.where(rec, vox, EMPTY64 >> 1), dim=-1)
+        valid_u = c_vox != EMPTY64 >> 1
+    else:
+        # the JAX package's compaction: the slice's lanes by (not a record,
+        # code), so an overflowed frame (n_unique = N + 1, every lane
+        # live) carries the slice's other valid codes after its records,
+        # as its window counts them there
+        n = vox.shape[-1]
+        lane = torch.arange(n, device=vox.device)
+        lb = _budget_slice(n, unique_budget, lane_budget)
+        sel = torch.where(lane < lb, ((~rec).to(torch.int64) << 61) | vox,
+                          EMPTY64)
+        c_key, end = torch.sort(sel, dim=-1)
+        c_vox = c_key & ((1 << 61) - 1)
+        valid_u = (lane < n_unique[..., None]) & (c_key < (1 << 62) - 1)
     c_csum = torch.gather(csum_occ, -1, end)
     prev_end = torch.cat([_first_lane(end, -1), end[..., :-1]], dim=-1)
     prev_csum = torch.cat([_first_lane(c_csum, 0), c_csum[..., :-1]], dim=-1)
-    valid_u = torch.arange(n, device=code.device) < n_unique[..., None]
     return (c_vox, end - prev_end, c_csum - prev_csum, valid_u, n_unique,
             perm, end)
+
+
+def _unique_records(c_vox, count, n_occ, valid_u, n_unique, brick,
+                    width) -> UniqueRecords:
+    c_hi, c_lo = code_words(c_vox, brick)
+    return UniqueRecords(
+        hi=_fit(torch.where(valid_u, c_hi, EMPTY_HI), width, EMPTY_HI),
+        lo=_fit(torch.where(valid_u, c_lo, EMPTY_HI), width, EMPTY_HI),
+        count=_fit(torch.where(valid_u, count, 0), width, 0),
+        n_occ=_fit(torch.where(valid_u, n_occ, 0), width, 0),
+        n_unique=n_unique,
+    )
 
 
 def dedup_frame(
@@ -128,26 +202,22 @@ def dedup_frame(
     occ: torch.Tensor,
     valid: torch.Tensor,
     brick: bool,
+    unique_budget: Optional[int] = None,
+    lane_budget: int = 0,
 ) -> UniqueRecords:
     """(..., N) two-word keys (brick codes when ``brick``, else voxel
-    codes), occupied flags and emission mask -> UniqueRecords of width N,
-    row by row (a (B, N) batch gives each frame's records bit for bit as
-    its (N,) row alone).
+    codes), occupied flags and emission mask -> UniqueRecords of width N
+    (``unique_budget`` when given; module docstring), row by row (a (B, N)
+    batch gives each frame's records bit for bit as its (N,) row alone).
 
     One sort of ``code << 1 | occ`` (61 bits; invalid lanes EMPTY64, last)
     groups each voxel's candidates; a second compacts the segment ends, in
     key order, whose lane indices and occupied cumsums give each record's
     count and n_occ as adjacent differences."""
     c_vox, count, n_occ, valid_u, n_unique, _, _ = _dedup_codes(
-        key_code(hi, lo, brick), occ, valid)
-    c_hi, c_lo = code_words(c_vox, brick)
-    return UniqueRecords(
-        hi=torch.where(valid_u, c_hi, EMPTY_HI),
-        lo=torch.where(valid_u, c_lo, EMPTY_HI),
-        count=torch.where(valid_u, count, 0),
-        n_occ=torch.where(valid_u, n_occ, 0),
-        n_unique=n_unique,
-    )
+        key_code(hi, lo, brick), occ, valid, unique_budget, lane_budget)
+    return _unique_records(c_vox, count, n_occ, valid_u, n_unique, brick,
+                           unique_budget)
 
 
 def dedup_frame_grouped(
@@ -158,28 +228,27 @@ def dedup_frame_grouped(
     group: torch.Tensor,
     n_groups: int,
     brick: bool,
+    unique_budget: Optional[int] = None,
+    lane_budget: int = 0,
 ) -> Tuple[UniqueRecords, torch.Tensor]:
     """``dedup_frame`` with records ordered by (group, key): returns
     (records, (N,) int64 group of each record, ``n_groups`` on unused
-    lanes), every group's records contiguous.
+    lanes), every group's records contiguous; both ``unique_budget``
+    lanes wide when it is given.
 
     ``group`` (N,) must be a pure function of the key.  Counts come from
     the key-ordered records, as in ``dedup_frame``; a stable sort on the
     record groups then moves whole records, so (group, key) order costs
     no change to the count arithmetic."""
     c_vox, count, n_occ, valid_u, n_unique, perm, end = _dedup_codes(
-        key_code(hi, lo, brick), occ, valid)
+        key_code(hi, lo, brick), occ, valid, unique_budget, lane_budget)
     rec_group = torch.where(valid_u, group.to(torch.int64)[perm[end]],
                             n_groups)
     rec_group, order = torch.sort(rec_group, stable=True)
-    c_hi, c_lo = code_words(c_vox[order], brick)
-    return UniqueRecords(
-        hi=torch.where(valid_u, c_hi, EMPTY_HI),
-        lo=torch.where(valid_u, c_lo, EMPTY_HI),
-        count=torch.where(valid_u, count[order], 0),
-        n_occ=torch.where(valid_u, n_occ[order], 0),
-        n_unique=n_unique,
-    ), rec_group
+    return _unique_records(
+        c_vox[order], count[order], n_occ[order], valid_u, n_unique, brick,
+        unique_budget,
+    ), _fit(rec_group, unique_budget, n_groups)
 
 
 class CompactRecords(NamedTuple):
@@ -198,18 +267,32 @@ class CompactRecords(NamedTuple):
         return self.key != EMPTY32
 
     @property
+    def count(self) -> torch.Tensor:
+        return self.payload >> 16
+
+    @property
     def n_occ(self) -> torch.Tensor:
         return self.payload & 0xFFFF
 
+    @property
+    def overflowed(self) -> torch.Tensor:
+        """More records than lanes: the frame's unique budget overflowed."""
+        return self.n_unique > self.key.shape[-1]
+
 
 def dedup_frame_compact(
-    key: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor
+    key: torch.Tensor,
+    occ: torch.Tensor,
+    valid: torch.Tensor,
+    unique_budget: Optional[int] = None,
+    lane_budget: int = 0,
 ) -> CompactRecords:
     """(..., N) box keys (< 2^30), occupied flags and emission mask ->
-    CompactRecords of width N, records in ascending key order, row by row:
-    a (B, N) batch gives each frame's records, ``n_unique`` and
-    ``pack_fail`` bit for bit as its (N,) row alone (the residue
-    arithmetic and the pack_fail distance test stay inside a row)."""
+    CompactRecords of width N (``unique_budget`` when given; module
+    docstring), records in ascending key order, row by row: a (B, N) batch
+    gives each frame's records, ``n_unique`` and ``pack_fail`` bit for bit
+    as its (N,) row alone (the residue arithmetic and the pack_fail
+    distance test stay inside a row)."""
     n = key.shape[-1]
     skey = torch.where(valid, (key << 1) | occ.to(torch.int64), EMPTY32)
     skey = torch.sort(skey, dim=-1).values
@@ -223,7 +306,8 @@ def dedup_frame_compact(
 
     seg_valid = skey != EMPTY32
     rec = _segment_ends(vox) & seg_valid
-    n_unique = rec.sum(dim=-1)
+    rec, n_unique = _in_slice(rec, seg_valid, rec.sum(dim=-1), unique_budget,
+                              lane_budget)
 
     # a voxel segment of 2^16+ candidates <=> an equal valid voxel pair at
     # distance 65535 in sorted order (compare vox: the occ bit can split a
@@ -250,10 +334,11 @@ def dedup_frame_compact(
     c_count = (idx16 - prev_idx) & 0xFFFF
     c_occ = (csum16 - prev_csum) & 0xFFFF
 
-    valid_u = lane < n_unique[..., None]
+    valid_u = c_key != EMPTY32
     return CompactRecords(
-        key=torch.where(valid_u, c_key, EMPTY32),
-        payload=torch.where(valid_u, (c_count << 16) | c_occ, 0),
+        key=_fit(c_key, unique_budget, EMPTY32),
+        payload=_fit(torch.where(valid_u, (c_count << 16) | c_occ, 0),
+                     unique_budget, 0),
         n_unique=n_unique,
         pack_fail=pack_fail,
     )
@@ -266,6 +351,8 @@ def dedup_frame_compact_grouped(
     group: torch.Tensor,
     n_groups: int,
     key_bits: int,
+    unique_budget: Optional[int] = None,
+    lane_budget: int = 0,
 ) -> Tuple[CompactRecords, torch.Tensor]:
     """``dedup_frame_compact`` with records ordered by (group, key): returns
     (records, (N,) int64 group of each record, ``n_groups`` on unused
@@ -283,7 +370,7 @@ def dedup_frame_compact_grouped(
         raise ValueError(f"{n_groups} groups and {key_bits} key bits exceed "
                          f"the compact dedup's 30-bit key")
     comb = (group.to(torch.int64) << key_bits) | key
-    rec = dedup_frame_compact(comb, occ, valid)
+    rec = dedup_frame_compact(comb, occ, valid, unique_budget, lane_budget)
     valid_u = rec.valid
     return rec._replace(
         key=torch.where(valid_u, rec.key & ((1 << key_bits) - 1), EMPTY32),

@@ -53,6 +53,8 @@ def frame_records(
     dtype: torch.dtype = torch.float32,
     raw: bool = False,
     frame_on: Optional[torch.Tensor] = None,
+    unique_budget: Optional[int] = None,
+    dedup_lane_budget: int = 0,
 ) -> Tuple[Union[CompactRecords, UniqueRecords], FrameAux]:
     """One ping -> (records, FrameAux); or a batch of F pings (``image``
     (F, R, Bw), ``T_sonar_to_world`` (F, 4, 4)) -> records and FrameAux
@@ -75,6 +77,13 @@ def frame_records(
     lane the candidate lattice gave it (valid records are NOT a prefix),
     and ``n_unique`` is the valid count.  Only the raw window apply
     (``bin_apply_raw``, which sums records per slot) may consume them.
+
+    ``unique_budget`` (unique records only) makes the records exactly
+    that many lanes wide, with the dedup's compaction slice
+    ``dedup_lane_budget`` (0: the dedup's default), as in the JAX package:
+    a frame with more records, or more valid candidates than the slice,
+    reports through ``n_unique`` (``overflowed``).  Without it the records
+    keep the candidate lattice's width and never overflow.
     """
     if raw and box_min is None:
         raise ValueError("raw records need box keys")
@@ -95,8 +104,10 @@ def frame_records(
         valid = valid & torch.as_tensor(frame_on, device=device)[..., None]
     range_fail = (valid & ~in_range).any(dim=-1)
     valid = valid & in_range
+    budget = dict(unique_budget=unique_budget, lane_budget=dedup_lane_budget)
     if box_min is None:
-        rec = dedup_frame(hi, lo, cand["is_occupied"], valid, brick_bits > 0)
+        rec = dedup_frame(hi, lo, cand["is_occupied"], valid, brick_bits > 0,
+                          **budget)
     elif raw:
         occ = cand["is_occupied"].to(torch.int64)
         rec = CompactRecords(
@@ -107,7 +118,7 @@ def frame_records(
                                   device=device),
         )
     else:
-        rec = dedup_frame_compact(bkey, cand["is_occupied"], valid)
+        rec = dedup_frame_compact(bkey, cand["is_occupied"], valid, **budget)
 
     return rec, frame_aux(keys, valid, range_fail, res)
 
@@ -119,14 +130,17 @@ def frame_records_batch(
     tables: FanTables,
     cfg: MapperConfig,
     dtype: torch.dtype = torch.float32,
+    unique_budget: Optional[int] = None,
 ) -> Tuple[UniqueRecords, FrameAux]:
     """Voxel-code records of F pings at once: ``images`` (F, R, Bw),
     ``transforms`` (F, 4, 4), ``frame_on`` (F,) bool window mask ->
-    UniqueRecords of width N and FrameAux, each with a leading (F,) axis
-    (the JAX package truncates the lanes to its unique budget; here
-    every frame keeps its N lanes, valid records first)."""
+    UniqueRecords and FrameAux, each with a leading (F,) axis.  The
+    records are ``unique_budget`` lanes wide when it is given, as the JAX
+    package's always are; without it every frame keeps its N lanes, valid
+    records first."""
     return frame_records(images, transforms, tables, cfg, None, None, 0,
-                         dtype=dtype, frame_on=frame_on)
+                         dtype=dtype, frame_on=frame_on,
+                         unique_budget=unique_budget)
 
 
 def frame_aux(
@@ -167,8 +181,9 @@ def stack_frame_records(
     """Per-frame or per-batch (records, FrameAux), in frame order, stacked
     along one leading frame axis.  With ``cut``, unique records (a prefix
     of their lanes) are cut to the widest frame's unique count (one sync a
-    call); raw candidates sit wherever the candidate lattice put them and
-    are stacked uncut."""
+    call); raw candidates sit wherever the candidate lattice put them, and
+    budgeted records are as wide as their budget, so both are stacked
+    uncut (no read)."""
     kind = type(outs[0][0])
 
     def rows(t, batched):

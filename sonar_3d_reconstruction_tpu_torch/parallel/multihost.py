@@ -26,7 +26,8 @@ segments' producers one after another in one process.  Records carry each
 frame's exact unique count (no budget), so the JAX wrapper's
 ``unique_overflow`` and ``batch_overflow`` branches (doubling a budget and
 recomputing the records or replaying the fold) have no counterpart here:
-the port keeps no budgets (ROADMAP item 19).  A window that would
+the fold is count-sized (the fixed-width budgets are the single-map
+pipeline's; ROADMAP queues the fold's).  A window that would
 overflow a table bucket grows the table and replays; keys outside the
 packable range and, on bricks, voxels with 2^16+ emissions in one frame
 are fatal.

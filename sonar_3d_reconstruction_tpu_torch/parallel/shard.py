@@ -41,10 +41,11 @@ Commit.  A step (a ping or a window) is all-or-nothing across the shards:
 every apply is out of place, and its result commits only when no shard
 failed (the counterpart of JAX's ``psum`` ``fail_reduce``); otherwise every
 shard keeps its table, poisoned, and the host loop (``run_grow_replay``)
-doubles every shard's table and replays.  There are no budgets, so JAX's
-unique, batch and insert overflow branches have no counterpart: only
-bucket growth and the fatal key-range (and, on bricks, count-packing)
-errors remain.
+doubles every shard's table and replays.  The sharded windows are sized
+from their counts (the fixed-width budgets are the single-map
+pipeline's), so JAX's unique, batch and insert overflow branches have no
+counterpart here: only bucket growth and the fatal key-range (and, on
+bricks, count-packing) errors remain.
 
 The hash engine.  ``ShardedHashState`` holds one ``grid.hash`` map a
 shard.  ``sharded_ping_step`` and ``scan_pings_sharded`` apply one ping at

@@ -69,6 +69,8 @@ _EXTRACT = {"brick": extract_occupied_brick,
 # the candidate-lattice caps the stream grows, and what each pings need
 _CAP_NEEDS = {"fan": required_fan_cap, "window": required_window_cap,
               "free": required_free_cap}
+# each backend's window-width budget besides the unique budget
+_SIZE_KEY = {"brick": "brick_budget", "hash": "batch_budget"}
 
 
 @dataclass
@@ -135,6 +137,14 @@ class StreamingMapper:
     ``chunk_size / ping_rate`` plus the chunk's mapping time; the
     low-latency configuration is ``chunk_size == window == 1``.
 
+    ``budgets`` (brick and hash; a plan from ``utils.autotune``, or the
+    JAX package's) seeds the sizes the stream would otherwise find as it
+    goes, as the JAX stream does: the table capacity, the unique budget,
+    the brick (hash: batch) budget and the grow-only caps.  Its backend
+    and window must match (ValueError otherwise).  Chunks then map at
+    those fixed widths and grow them by cause; the plan's lane, insert
+    and vox budgets stay offline-only.
+
     The fan, window and free caps that size the candidate lattice grow to
     the largest the pings seen so far need, never shrinking, so the
     memoised fan tables are rebuilt only when a cap grows.  ``backend`` is
@@ -161,6 +171,7 @@ class StreamingMapper:
         dense_mode: str = "pallas",
         device=None,
         mesh=None,
+        budgets: Optional[Dict[str, Any]] = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
@@ -169,6 +180,27 @@ class StreamingMapper:
         self.stream_cfg = stream_cfg or StreamConfig()
         self.chunk_size = chunk_size
         self.window = max(1, min(window, chunk_size))
+        # the fixed-width sizes the chunks map at (None: count-sized)
+        self._budgets: Optional[Dict[str, Any]] = None
+        self._caps = dict.fromkeys(_CAP_NEEDS, 0)
+        if budgets is not None:
+            if backend not in _SIZE_KEY:
+                raise ValueError(f"budgets size the brick and hash windows, "
+                                 f"not {backend!r}")
+            for key, want in (("backend", backend), ("window", self.window)):
+                if budgets.get(key, want) != want:
+                    raise ValueError(f"budget plan was tuned for {key}="
+                                     f"{budgets.get(key)!r}, not {want!r}")
+            if budgets.get("capacity"):
+                # plan capacity counts bricks for brick: undo the >> 4 below
+                initial_capacity = int(budgets["capacity"])
+                if backend == "brick":
+                    initial_capacity <<= 4
+            size_key = _SIZE_KEY[backend]
+            self._budgets = {"unique_budget": budgets.get("unique_budget"),
+                             size_key: budgets.get(size_key)}
+            for name in _CAP_NEEDS:
+                self._caps[name] = int(budgets.get(f"{name}_cap") or 0)
         self.dtype = dtype
         self.publish = publish
         self.backend = backend
@@ -194,7 +226,6 @@ class StreamingMapper:
             )
         self.stats = StreamStats()
         self._tables: Optional[FanTables] = None
-        self._caps = dict.fromkeys(_CAP_NEEDS, 0)
         self._chunk_images: List[np.ndarray] = []
         self._chunk_positions: List[np.ndarray] = []
         self._chunk_quats: List[np.ndarray] = []
@@ -292,9 +323,16 @@ class StreamingMapper:
             self.state, _ = map_ping_sequence_sharded_frames(
                 images, positions, quats, self.cfg, **kw)
         else:
+            effective: Dict[str, Any] = {}
             self.state, _ = map_ping_sequence(
                 images, positions, quats, self.cfg, device=self.device,
-                backend=self.backend, **kw)
+                backend=self.backend, budgets=self._budgets,
+                effective=effective, **kw)
+            if self._budgets is not None:
+                # sizes a chunk grew to hold for the chunks after it
+                size_key = _SIZE_KEY[self.backend]
+                self._budgets = {k: effective[k]
+                                 for k in ("unique_budget", size_key)}
         # the call copied the last window's stats to the host, which
         # waited for the device: `done` is a commit time
         done = time.perf_counter()

@@ -103,7 +103,9 @@ def test_bench_hash_on_the_cpu():
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"BENCH_DENSE_MODE": "pallas-tb16"}, "pallas-raw"),
+    # the JAX spellings ("pallas-tb16", the root bench's default) are
+    # accepted; raw records on an XLA layout are not
+    ({"BENCH_DENSE_MODE": "bfv-raw"}, "pallas-raw"),
     ({"BENCH_BACKEND": "hash", "BENCH_RECORDS_BATCH": "4"}, "records_batch"),
     ({"BENCH_BACKEND": "octree"}, "brick or hash"),
     ({"BENCH_PINGS": "0"}, "positive"),

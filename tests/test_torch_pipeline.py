@@ -294,10 +294,14 @@ def test_raw_mode_keeps_candidates_past_the_unique_count():
     np.testing.assert_equal(brick_state_to_numpy(r_st), brick_state_to_numpy(d_st))
 
 
-@pytest.mark.parametrize("mode", ["bfv", "pallas-tb16"])
+@pytest.mark.parametrize("mode", [
+    pytest.param("bfv-raw", id="bfv"),
+    pytest.param("pallas-tb16-tb8", id="pallas-tb16"),
+])
 def test_map_ping_sequence_rejects_other_dense_modes(small_cfg, mode):
-    """Only "pallas" and "pallas-raw" are accepted; the JAX package's TPU
-    tile suffixes are refused, not ignored."""
+    """The JAX package's spellings are accepted (test_torch_budgets.py);
+    a spelling it does not parse, such as raw records on an XLA layout or
+    a repeated tile suffix, is refused, not ignored."""
     images, positions, quats = make_seq(small_cfg, 2, seed=65)
     with pytest.raises(ValueError, match="pallas-raw"):
         pipeline.map_ping_sequence(
@@ -381,7 +385,8 @@ def test_map_ping_sequence_runs_on_the_card_unless_told(small_cfg):
 
 def test_port_runs_with_jax_blocked():
     """The port and its CPU path import neither jax, the JAX package nor
-    the root bench.py: the main path (with batched records too), the
+    the root bench.py: the main path (with batched records too, and a
+    budget plan from utils.autotune), the
     bench's survey and one bench run, the hash backend (pipeline, snapshot, mapper), wide
     keys, the dense backend (pipeline, mapper), the multi-host fold, the
     sharded brick engine (engine, snapshot, mapper), every module of the port (the stream, the node and the debug
@@ -497,6 +502,14 @@ def test_port_runs_with_jax_blocked():
         assert sm.stats.frames_mapped == 3
         s_pts, s_probs = extract_occupied_brick(sm.state, cfg)
         assert np.array_equal(s_pts, pts) and np.array_equal(s_probs, probs)
+        from sonar_3d_reconstruction_tpu_torch.utils.autotune import (
+            tune_sequence)
+        plan = tune_sequence(images, pos, q, cfg, window=2, device="cpu")
+        t_st, t_stats = map_ping_sequence(images, pos, q, cfg, device="cpu",
+                                          window=2, budgets=plan)
+        t_pts, _ = extract_occupied_brick(t_st, cfg)
+        assert np.array_equal(t_pts, pts)
+        assert (t_stats["num_free"] == stats["num_free"]).all()
         sys.argv = ["sonar3d", "selftest", "--device", "cpu"]
         try:
             runpy.run_module("sonar_3d_reconstruction_tpu_torch",
