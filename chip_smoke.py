@@ -246,6 +246,24 @@ Phases (each prints its own line; any failure raises and exits non-zero):
       maps (voxels one map holds and common voxels over 1e-5 each under
       2e-3 of the common voxels, the 99.5th percentile within 1e-5).
    Any mismatch prints its repro line and fails the run.
+14. the deployment budget plans of the single map: the survey tuned on
+   the card (the plan held to ``bench_plan.json``), mapped with and
+   without plans in both dense modes at records_batch 1 and 16 (maps
+   and stats equal, syncs, launches, walls, K1 / K1-raw on the padded
+   window), stale plans that replay, ``tune`` and ``map-bag --budgets``.
+15. the sharded engines' and the multi-host fold's budgets, the card
+   repeated as the mesh: (a) the survey through the frame-parallel engine
+   at S = 2 and 4 (dedup) and S = 4 (raw), count-sized and with snug
+   budgets from that run's stats (``_snug_unique`` and JAX's margins):
+   maps and stats bit-equal (voxels = phase 2's), syncs a run, launches
+   a ping, median wall of SB_RUNS alternating runs, peak memory, K1 /
+   K1-raw against plain on the widest shard window count-sized and
+   padded; (b) the replicated-records brick engine and the sharded hash
+   engine (window 16, and window 1 with a unique budget), each map equal
+   to the single-map pipeline's; (c) the fold of SB_HOSTS segments, brick
+   and hash; (d) a quarter of each snug budget and SB_XCHG lanes a block
+   at S = 4: the causes each scan names and the count-sized map, and
+   SB_F64_PINGS float64 pings with budgets, card against CPU.
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -2879,7 +2897,8 @@ def _sharded_stream_and_node(dev, smi, main_voxels):
         f"window 16, {SHARDED_S} shards on {dev}: {voxels} voxels and "
         f"log-odds equal phase 2's map (tolerance 0); wall {wall:.3f} s, "
         f"{len(msgs) / wall:.1f} pings/s, latency p50 {lat:.1f} ms, {n} "
-        f"bin_apply launches, {sm.stats.grows} table doublings [{smi}]",
+        f"bin_apply launches, {sm.stats.grows} chunks that grew the tables "
+        f"[{smi}]",
         flush=True,
     )
     return ({what: n, "node (brick-sharded)": node_launches},
@@ -4268,7 +4287,7 @@ def keep_scan_stats():
 def _causes(stats):
     """{cause: pings that report it} of one scan's stats."""
     return {k: int(stats[k].sum()) for k in (
-        "overflowed", "unique_overflow", "batch_overflow",
+        "overflowed", "unique_overflow", "xchg_overflow", "batch_overflow",
         "insert_overflow") if k in stats}
 
 
@@ -4559,6 +4578,526 @@ def phase_budgets(dev, smi, main_voxels, main_stats, raw_stats, cli_voxels):
     return launches, facts
 
 
+SB_PINGS = 256            # 15a, 15c: phase 2's survey
+SB_SETTINGS = ((2, "pallas"), (4, "pallas"), (4, "pallas-raw"))  # 15a
+SB_S = 4                  # 15b-15d: shards
+SB_CAPACITY = 1 << 16     # bricks (hash: slots / 4) a shard: no run grows
+SB_RUNS = 5               # 15a: alternating timed runs of each run
+SB_SHORT_RUNS = 3         # 15b, 15c: alternating timed runs
+SB_REPL_PINGS = 64        # 15b, 15d: the survey's first pings
+SB_W1_PINGS = 32          # 15b: the sharded hash engine at window 1
+SB_HOSTS = 4              # 15c: segments of the fold
+SB_F64_PINGS = 16         # 15d: float64 pings, card against CPU
+SB_XCHG = 1024            # 15d: the undersized exchange budget at S = 4
+
+
+def _ru(x, m):
+    return int(-(-int(x) // m) * m)
+
+
+def _snug_unique(stats):
+    """A snug unique budget from a count-sized run's per-ping stats: 1.1x
+    the widest frame's records, and a dedup slice (2U) over 1.05x its
+    valid candidates, to 4096 (the JAX package's snug margins)."""
+    import numpy as np
+
+    u = int((np.asarray(stats["num_occupied"])
+             + np.asarray(stats["num_free"])).max())
+    valid = int(np.asarray(stats["num_candidates"]).max())
+    return _ru(max(1.1 * u, 1.05 * valid / 2), 4096)
+
+
+def _window_lanes(stats, window):
+    """The largest window's summed per-frame records (every shard's)."""
+    import numpy as np
+
+    per = (np.asarray(stats["num_occupied"])
+           + np.asarray(stats["num_free"])).astype(np.int64)
+    return int(np.pad(per, (0, (-len(per)) % window))
+               .reshape(-1, window).sum(axis=1).max())
+
+
+def _quarter(budgets):
+    return {k: max(1, v // 4) for k, v in budgets.items()}
+
+
+def _fold_arrays(stats):
+    """The fold's per-frame stats dicts as arrays."""
+    import numpy as np
+
+    return {k: np.asarray([x[k] for x in stats]) for k in stats[0]}
+
+
+@contextlib.contextmanager
+def keep_sharded_scans():
+    """While open, every scan of the sharded engines (``scan_windows``)
+    and every fold of the multi-host wrapper (``apply_record_segments``)
+    also appends its per-ping host stats to the list it yields."""
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        multihost,
+        shard,
+        shard_brick,
+        shard_frames,
+    )
+
+    scans = []
+    saved = [(m, "scan_windows") for m in (shard, shard_brick, shard_frames)]
+    saved.append((multihost, "apply_record_segments"))
+    fns = {key: getattr(*key) for key in saved}
+
+    def wrap(fn, fold):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            scans.append(_fold_arrays(out[1]) if fold else out[1])
+            return out
+        return wrapped
+
+    for (m, name), fn in fns.items():
+        setattr(m, name, wrap(fn, m is multihost))
+    try:
+        yield scans
+    finally:
+        for (m, name), fn in fns.items():
+            setattr(m, name, fn)
+
+
+def _same_sharded(a, b, what):
+    """Two sharded maps equal array for array on every shard."""
+    import torch
+
+    for s, (x, y) in enumerate(zip(a.shards, b.shards)):
+        for k in x._fields:
+            if not torch.equal(getattr(x, k), getattr(y, k)):
+                raise AssertionError(f"{what}: shard {s} {k} differs")
+
+
+def _same_shared_stats(got, want, what, skip=()):
+    """Every per-ping stat the two runs share, bit for bit."""
+    _same_stats(got, want, what, keys=tuple(
+        k for k in want if k in got and k not in skip))
+
+
+def _budget_pair(dev, smi, what, run, size, runs, n_pings, raw=None):
+    """``run(budgets)`` count-sized (None) and with ``size(count-sized
+    stats)``'s budgets: K1 (``raw`` True: K1-raw; None: no kernel) launches
+    and peak memory of one run each, launches a ping and syncs a run of a
+    profiled run each, and the median wall of ``runs`` runs in
+    alternating order.  Returns (count-sized (state, stats), budgeted
+    (state, stats), the budgets, facts)."""
+    import numpy as np
+    import torch
+
+    out, facts, budgets = {}, {}, None
+    for label in ("count-sized", "budgets"):
+        if label == "budgets":
+            budgets = size(out["count-sized"][1])
+        torch.cuda.reset_peak_memory_stats(dev)
+        if raw is None:
+            res, n = run(budgets), 0
+        else:
+            res, n = _k1_launches_of(lambda: run(budgets), raw=raw,
+                                     what=f"{what} {label}")
+        facts[label] = dict(k1_launches=n, peak_mib=(
+            torch.cuda.max_memory_allocated(dev) / 2**20))
+        out[label] = res
+    for label, b in (("count-sized", None), ("budgets", budgets)):
+        _, n_launch, n_sync = _launches_and_syncs(lambda: run(b))
+        facts[label].update(launches_per_ping=n_launch / n_pings,
+                            syncs_per_run=n_sync)
+    walls = {"count-sized": [], "budgets": []}
+    for r in range(runs):
+        order = [("count-sized", None), ("budgets", budgets)]
+        for label, b in (order if r % 2 == 0 else order[::-1]):
+            walls[label].append(_wall(lambda: run(b))[1])
+    for label, f in facts.items():
+        q1, med, q3 = np.percentile(walls[label], [25, 50, 75])
+        f.update(wall_s=med, wall_q1_s=q1, wall_q3_s=q3)
+    c, b = facts["count-sized"], facts["budgets"]
+    print(f"phase 15 {what}: count-sized / budgets wall {c['wall_s']:.3f} "
+          f"/ {b['wall_s']:.3f} s (median of {runs} alternating runs), "
+          f"syncs a run {c['syncs_per_run']} / {b['syncs_per_run']}, "
+          f"launches a ping {c['launches_per_ping']:.1f} / "
+          f"{b['launches_per_ping']:.1f}, peak {c['peak_mib']:.1f} / "
+          f"{b['peak_mib']:.1f} MiB"
+          + ("" if raw is None else
+             f", {'bin_apply_raw' if raw else 'bin_apply'} launches "
+             f"{c['k1_launches']} / {b['k1_launches']}")
+          + f"; budgets {budgets} [{smi}]", flush=True)
+    return out["count-sized"], out["budgets"], budgets, facts
+
+
+def _sb_k1(dev, smi, run, budgets, raw, what):
+    """K1 (``raw``: K1-raw) on the widest shard window of the count-sized
+    run and on the same window of the budgeted run (padded to the
+    budgets): bit-equal to its plain version in float32 and float64,
+    device time, bound and plain time each.  Returns facts."""
+    import numpy as np
+
+    from sonar_3d_reconstruction_tpu_torch.grid import brick
+    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply as k1
+
+    name = "bin_apply_raw" if raw else "bin_apply"
+    kernel, plain = ((k1.bin_apply_raw, k1.bin_apply_raw_reference) if raw
+                     else (k1.bin_apply, k1.bin_apply_reference))
+    fn, lanes = getattr(brick, name), []
+
+    def counted(s_flat, *args, **kw):
+        lanes.append(s_flat.shape[0])
+        return fn(s_flat, *args, **kw)
+
+    setattr(brick, name, counted)
+    try:
+        run(None)
+    finally:
+        setattr(brick, name, fn)
+    index = int(np.argmax(lanes))
+    facts = {}
+    for label, b in (("count_sized", None), ("budgeted", budgets)):
+        with keep_k1_call(raw, index) as kept:
+            run(b)
+        _widest_equals_plain(kept, raw, f"15 {what} {label}")
+        args, kw = kept["args"], kept["kw"]
+        ms = _device_ms(lambda: kernel(*args, **kw), "bin_apply_kernel")
+        facts[label] = dict(
+            NB=args[3].shape[0], L=args[0].shape[0], ms=ms,
+            bound_ms=_bound_ms(k1_bytes(args, raw, kw["B"])[0]),
+            plain_ms=_time_ms(lambda: plain(*args, **kw), reps=3))
+    c, b = facts["count_sized"], facts["budgeted"]
+    print(f"phase 15 {what}: {name} == plain (tolerance {KERNEL_TOL}, "
+          f"float32 and float64) on the widest shard window (call "
+          f"{index}): count-sized NB={c['NB']} L={c['L']} {c['ms']:.4f} ms "
+          f"(bound {c['bound_ms']:.4f} ms, {c['bound_ms'] / c['ms']:.1%}; "
+          f"plain {c['plain_ms']:.3f} ms), padded NB={b['NB']} L={b['L']} "
+          f"{b['ms']:.4f} ms (bound {b['bound_ms']:.4f} ms, "
+          f"{b['bound_ms'] / b['ms']:.1%}; plain {b['plain_ms']:.3f} ms) "
+          f"[{smi}]", flush=True)
+    return facts
+
+
+def _sb_frames(dev, smi, survey, main_voxels, main_stats, raw_stats):
+    """15a: the frame-parallel engine, count-sized and with snug budgets,
+    at each (S, mode) of SB_SETTINGS.  Returns (launches, facts, the
+    snug budgets at S = SB_S in dedup mode)."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded_frames,
+    )
+
+    cfg, images, positions, quats, tables = survey
+    want = _by_key(main_voxels)
+    launches = {"bin_apply": {}, "bin_apply_raw": {}}
+    facts, snug_s4 = {}, None
+    for S, mode in SB_SETTINGS:
+        raw = mode == "pallas-raw"
+        what = f"15a map_ping_sequence_sharded_frames {mode} (S={S})"
+
+        def run(budgets, S=S, mode=mode):
+            return map_ping_sequence_sharded_frames(
+                images, positions, quats, cfg, mesh=(dev,) * S, window=16,
+                dtype=torch.float32, dense_mode=mode, tables=tables,
+                local_capacity=SB_CAPACITY, **(budgets or {}))
+
+        def size(stats):
+            return dict(
+                unique_budget=_snug_unique(stats),
+                xchg_budget=_ru(1.1 * stats["xchg_n_max"].max(), 128),
+                brick_budget=_ru(1.15 * stats["batch_n_bricks_max"].max(),
+                                 1024),
+                lane_budget=_ru(1.1 * stats["batch_n_lanes_max"].max(), 8192))
+
+        (cs, cs_stats), (bd, bd_stats), budgets, f = _budget_pair(
+            dev, smi, what, run, size, SB_RUNS, SB_PINGS, raw=raw)
+        _same_stats(cs_stats, raw_stats if raw else main_stats, what)
+        _same_voxels(_touched(cs), want, 0.0, what)
+        _same_sharded(bd, cs, f"{what}: budgets vs count-sized")
+        _same_shared_stats(bd_stats, cs_stats, what, skip=("xchg_n_max",))
+        per_window = cs_stats["xchg_n_max"].reshape(-1, 16).max(axis=1)
+        if (bd_stats["overflowed"].any() or cs.local_capacity != SB_CAPACITY
+                or not np.array_equal(bd_stats["xchg_n_max"],
+                                      np.repeat(per_window, 16))):
+            raise AssertionError(f"{what}: a budgeted window overflowed, a "
+                                 f"table grew, or xchg_n_max is not the "
+                                 f"windows' largest block")
+        for label in ("count-sized", "budgets"):
+            n = f[label]["k1_launches"]
+            if n != S * SB_PINGS // 16:
+                raise AssertionError(f"{what} {label}: {n} K1 launches")
+            launches["bin_apply_raw" if raw else "bin_apply"][
+                f"{what[4:]} {label}"] = n
+        if S == SB_S:
+            f["k1_window"] = _sb_k1(dev, smi, run, budgets, raw, what)
+            if not raw:
+                snug_s4 = budgets
+        f["budgets"] = budgets
+        facts[f"S{S} {mode}"] = f
+        print(f"phase {what}: voxels == phase 2's, stats == phase "
+              f"{'2b' if raw else '2'}'s; budgeted map and every shared "
+              f"stat bit-equal to count-sized, xchg_n_max the window's "
+              f"largest block [{smi}]", flush=True)
+    return launches, facts, snug_s4
+
+
+def _sb_replicated(dev, smi, survey):
+    """15b: the replicated-records brick engine and the sharded hash
+    engine (window 16, SB_REPL_PINGS pings; window 1, SB_W1_PINGS pings),
+    count-sized and with snug budgets, each map against the single-map
+    pipeline's.  Returns (launches, facts, the snug budgets)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_sharded,
+        map_ping_sequence_sharded_brick,
+    )
+    from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
+
+    cfg, images, positions, quats, _ = survey
+    mesh = (dev,) * SB_S
+    launches, facts, snug = {"bin_apply": {}}, {}, {}
+
+    def pings(n):
+        return images[:n], positions[:n], quats[:n]
+
+    engines = [
+        ("brick", SB_REPL_PINGS, 16, lambda b, n: map_ping_sequence_sharded_brick(
+            *pings(n), cfg, mesh=mesh, window=16, dtype=torch.float32,
+            local_capacity=SB_CAPACITY, **(b or {})),
+         lambda st: dict(
+             unique_budget=_snug_unique(st),
+             brick_budget=_ru(1.15 * st["batch_n_bricks_max"].max(), 1024),
+             lane_budget=_ru(1.1 * st["batch_n_lanes_max"].max(), 8192))),
+        ("hash", SB_REPL_PINGS, 16, lambda b, n: map_ping_sequence_sharded(
+            *pings(n), cfg, mesh=mesh, window=16, dtype=torch.float32,
+            local_capacity=4 * SB_CAPACITY, **(b or {})),
+         lambda st: dict(
+             unique_budget=_snug_unique(st),
+             batch_budget=_ru(1.15 * st["batch_n_unique_max"].max(), 8192),
+             lane_budget=_ru(1.1 * _window_lanes(st, 16), 8192))),
+        ("hash w1", SB_W1_PINGS, 1, lambda b, n: map_ping_sequence_sharded(
+            *pings(n), cfg, mesh=mesh, window=1, dtype=torch.float32,
+            local_capacity=4 * SB_CAPACITY, **(b or {})),
+         lambda st: dict(unique_budget=_snug_unique(st))),
+    ]
+    for name, n, window, run, size in engines:
+        what = (f"15b map_ping_sequence_sharded"
+                f"{'_brick' if name == 'brick' else ''} window {window} "
+                f"(S={SB_S}, {n} pings)")
+        single, _ = map_ping_sequence(
+            *pings(n), cfg, device=dev, backend=name.split()[0],
+            window=window, dtype=torch.float32)
+        (cs, cs_stats), (bd, bd_stats), budgets, f = _budget_pair(
+            dev, smi, what, lambda b: run(b, n), size, SB_SHORT_RUNS, n,
+            raw=False if name == "brick" else None)
+        _same_voxels(_touched(cs), _touched(single), 0.0, what)
+        _same_sharded(bd, cs, f"{what}: budgets vs count-sized")
+        _same_shared_stats(bd_stats, cs_stats, what)
+        if bd_stats["overflowed"].any():
+            raise AssertionError(f"{what}: a budgeted step overflowed")
+        if name == "brick":
+            for label in ("count-sized", "budgets"):
+                launches["bin_apply"][f"{what[4:]} {label}"] = (
+                    f[label]["k1_launches"])
+        f["budgets"] = budgets
+        facts[name] = f
+        snug[name] = budgets
+        print(f"phase {what}: voxels == the single-map pipeline's; "
+              f"budgeted map and every shared stat bit-equal to "
+              f"count-sized [{smi}]", flush=True)
+    return launches, facts, snug
+
+
+def _sb_fold(dev, smi, survey):
+    """15c: the multi-host fold (SB_HOSTS segments, window 16) on the
+    brick and the hash map, count-sized and with snug budgets.  Returns
+    (launches, facts, the snug budgets)."""
+    import numpy as np
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_multihost,
+    )
+
+    cfg, images, positions, quats, _ = survey
+    launches, facts, snug = {"bin_apply": {}}, {}, {}
+    for backend in ("brick", "hash"):
+        what = (f"15c map_ping_sequence_multihost ({backend}, {SB_HOSTS} "
+                f"segments)")
+
+        def run(budgets, backend=backend):
+            st, stats = map_ping_sequence_multihost(
+                images, positions, quats, cfg, n_hosts=SB_HOSTS, window=16,
+                backend=backend, dtype=torch.float32, device=dev,
+                **(budgets or {}))
+            return st, _fold_arrays(stats)
+
+        def size(stats, backend=backend):
+            if backend == "brick":
+                batch = _ru(1.15 * stats["batch_n_bricks"].max(), 1024)
+            else:
+                # the hash fold's lane slice is twice its batch budget
+                batch = max(_ru(1.15 * stats["batch_n_unique"].max(), 8192),
+                            _ru(0.55 * _window_lanes(stats, 16), 8192))
+            return dict(unique_budget=_snug_unique(stats),
+                        batch_budget=batch)
+
+        (cs, cs_stats), (bd, bd_stats), budgets, f = _budget_pair(
+            dev, smi, what, run, size, SB_SHORT_RUNS, SB_PINGS,
+            raw=False if backend == "brick" else None)
+        for k in cs._fields:
+            if not torch.equal(getattr(bd, k), getattr(cs, k)):
+                raise AssertionError(f"{what}: budgeted state {k} differs")
+        _same_shared_stats(bd_stats, cs_stats, what)
+        if bd_stats["overflowed"].any() or not np.array_equal(
+                cs_stats["num_candidates"], bd_stats["num_candidates"]):
+            raise AssertionError(f"{what}: a budgeted window overflowed")
+        if backend == "brick":
+            for label in ("count-sized", "budgets"):
+                launches["bin_apply"][f"{what[4:]} {label}"] = (
+                    f[label]["k1_launches"])
+        f["budgets"] = budgets
+        facts[backend] = f
+        snug[backend] = budgets
+        print(f"phase {what}: budgeted map and every shared stat bit-equal "
+              f"to count-sized [{smi}]", flush=True)
+    return launches, facts, snug
+
+
+def _sb_undersized(dev, smi, survey, snug_frames, snug_repl, snug_fold):
+    """15d: a quarter of each snug budget (and SB_XCHG lanes a block at S
+    = SB_S; the window-1 hash engine a quarter of a shard's share of its
+    unique budget) on SB_REPL_PINGS pings through every engine: the causes
+    each scan names, and the map of the count-sized run; SB_F64_PINGS
+    float64 pings at the snug budgets, card against CPU.  Returns
+    facts."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.parallel import (
+        map_ping_sequence_multihost,
+        map_ping_sequence_sharded,
+        map_ping_sequence_sharded_brick,
+        map_ping_sequence_sharded_frames,
+    )
+
+    cfg, images, positions, quats, _ = survey
+    n = SB_REPL_PINGS
+    pings = (images[:n], positions[:n], quats[:n])
+    mesh = (dev,) * SB_S
+    sharded = dict(mesh=mesh, dtype=torch.float32)
+    runs = [
+        ("frames quarter", lambda b: map_ping_sequence_sharded_frames(
+            *pings, cfg, window=16, **sharded, **b), _quarter(snug_frames)),
+        (f"frames xchg {SB_XCHG}", lambda b: map_ping_sequence_sharded_frames(
+            *pings, cfg, window=16, **sharded, **b),
+         dict(xchg_budget=SB_XCHG)),
+        ("replicated brick quarter", lambda b: map_ping_sequence_sharded_brick(
+            *pings, cfg, window=16, **sharded, **b),
+         _quarter(snug_repl["brick"])),
+        ("hash window 16 quarter", lambda b: map_ping_sequence_sharded(
+            *pings, cfg, window=16, **sharded, **b),
+         _quarter(snug_repl["hash"])),
+        # the frame's snug unique budget, which each shard's dedup takes,
+        # is about S times a shard's records: a quarter of a shard's share
+        ("hash window 1 quarter share", lambda b: map_ping_sequence_sharded(
+            images[:SB_W1_PINGS], positions[:SB_W1_PINGS],
+            quats[:SB_W1_PINGS], cfg, window=1, **sharded, **b),
+         {"unique_budget": max(1, snug_repl["hash w1"]["unique_budget"]
+                               // (4 * SB_S))}),
+    ]
+    for backend in ("brick", "hash"):
+        runs.append((f"fold {backend} quarter",
+                     lambda b, backend=backend: map_ping_sequence_multihost(
+                         *pings, cfg, n_hosts=SB_HOSTS, window=16,
+                         backend=backend, dtype=torch.float32, device=dev,
+                         **b),
+                     _quarter(snug_fold[backend])))
+    facts = {}
+    for label, run, budgets in runs:
+        (want, _), _ = _wall(lambda: run({}))
+        with keep_sharded_scans() as scans:
+            (st, stats), wall = _wall(lambda: run(budgets))
+        if isinstance(stats, list):
+            stats = _fold_arrays(stats)
+        causes = [_causes(x) for x in scans]
+        _same_voxels(_touched(st), _touched(want), 0.0, f"15d {label}")
+        if stats["overflowed"].any() or len(scans) < 2:
+            raise AssertionError(f"15d {label}: {len(scans)} scans, "
+                                 f"overflow left {stats['overflowed'].any()}")
+        facts[label] = dict(budgets=budgets, scans=len(scans), causes=causes,
+                            wall_s=wall)
+        print(f"phase 15d {label}: budgets {budgets}; {len(scans)} scans in "
+              f"{wall:.3f} s, pings reporting each cause by scan {causes}; "
+              f"voxels and log-odds equal the count-sized run's [{smi}]",
+              flush=True)
+
+    # float64 on the card and the CPU at the snug budgets (one scan: the
+    # CPU maps the full-size pings of every shard): every shard array and
+    # stat equal
+    m = SB_F64_PINGS
+    b = snug_frames
+    out = {}
+    for where, mesh64 in (("card", mesh), ("cpu", ("cpu",) * SB_S)):
+        (out[where]), secs = _wall(lambda: map_ping_sequence_sharded_frames(
+            images[:m], positions[:m], quats[:m], cfg, window=16,
+            mesh=mesh64, dtype=torch.float64, **b))
+        facts[f"float64 {where}_s"] = secs
+    (gpu, g_stats), (cpu, c_stats) = out["card"], out["cpu"]
+    for s, (x, y) in enumerate(zip(gpu.shards, cpu.shards)):
+        for k in x._fields:
+            if not torch.equal(getattr(x, k).cpu(), getattr(y, k)):
+                raise AssertionError(f"15d float64: shard {s} {k} differs "
+                                     f"between the card and the CPU")
+    _same_shared_stats(g_stats, c_stats, "15d float64 card vs CPU")
+    print(f"phase 15d float64: {m} pings, frame-parallel engine at S={SB_S} "
+          f"with budgets {b}: every shard array and per-ping stat "
+          f"bit-equal card vs CPU (card {facts['float64 card_s']:.3f} s, "
+          f"CPU {facts['float64 cpu_s']:.3f} s) [{smi}]", flush=True)
+    return facts
+
+
+def phase_sharded_budgets(dev, smi, main_voxels, main_stats, raw_stats):
+    """Phase 15: the sharded engines' and the multi-host fold's budgets on
+    the card, the card repeated as the mesh (15a the frame-parallel
+    engine, 15b the replicated-records engines, 15c the fold, 15d
+    undersized budgets).  Returns ({K1 form: {path: launches}}, facts)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        tables_for_images,
+    )
+
+    t0 = time.perf_counter()
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, SB_PINGS)
+    survey = (cfg, images, positions, quats, tables_for_images(images, cfg))
+    launches, facts = {"bin_apply": {}, "bin_apply_raw": {}}, {}
+    parts_s = {}
+    t = time.perf_counter()
+    part, facts["frames"], snug_frames = _sb_frames(
+        dev, smi, survey, main_voxels, main_stats, raw_stats)
+    for k in launches:
+        launches[k].update(part.get(k, {}))
+    parts_s["15a"], t = time.perf_counter() - t, time.perf_counter()
+    part, facts["replicated"], snug_repl = _sb_replicated(dev, smi, survey)
+    launches["bin_apply"].update(part["bin_apply"])
+    parts_s["15b"], t = time.perf_counter() - t, time.perf_counter()
+    part, facts["fold"], snug_fold = _sb_fold(dev, smi, survey)
+    launches["bin_apply"].update(part["bin_apply"])
+    parts_s["15c"], t = time.perf_counter() - t, time.perf_counter()
+    facts["undersized"] = _sb_undersized(dev, smi, survey, snug_frames,
+                                         snug_repl, snug_fold)
+    parts_s["15d"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    facts["phase_s"] = time.perf_counter() - t0
+    facts["parts_s"] = parts_s
+    print(f"phase 15 sharded budgets on the card: {facts['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts_s.items()) + ")",
+          flush=True)
+    return launches, facts
+
+
 def main() -> int:
     import torch
 
@@ -4609,6 +5148,8 @@ def main() -> int:
     budget_launches, budgets = phase_budgets(
         dev, smi, main_voxels, main_stats, raw_stats,
         entry["cli_map_bag"]["num_voxels"])
+    shard_budget_launches, shard_budgets = phase_sharded_budgets(
+        dev, smi, main_voxels, main_stats, raw_stats)
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -4620,21 +5161,26 @@ def main() -> int:
               **stream_launches["bin_apply"], **wide_launches,
               **late_launches, **sharded_launches, **replicated_launches,
               **batch_launches["bin_apply"], **golden_launches["bin_apply"],
-              **budget_launches["bin_apply"]),
+              **budget_launches["bin_apply"],
+              **shard_budget_launches["bin_apply"]),
          dict(k1, entry_points=entry, stream=stream, **hash_wide,
               **dense_fold, **sharded, **replicated,
               owner_blocks=late_checks["owner_blocks"],
               poses=late_checks["poses"], records_batch=batched,
-              golden=golden, budgets=budgets)),
+              golden=golden, budgets=budgets,
+              sharded_budgets=shard_budgets)),
         ("bin_apply_raw", bin_src, bin_tpu, raw_launches,
          {"main (pallas-raw)": raw_launches,
           **stream_launches["bin_apply_raw"], **raw_sharded_launches,
           **batch_launches["bin_apply_raw"],
           **golden_launches["bin_apply_raw"],
-          **budget_launches["bin_apply_raw"]},
+          **budget_launches["bin_apply_raw"],
+          **shard_budget_launches["bin_apply_raw"]},
          dict(k1_raw, sharded_raw=late_checks["sharded_raw"],
               budgets_k1_windows=budgets["runs"]["k1_windows"][
-                  "bin_apply_raw"])),
+                  "bin_apply_raw"],
+              sharded_budgets_k1_window=shard_budgets["frames"][
+                  f"S{SB_S} pallas-raw"]["k1_window"])),
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",
          "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, {}, k2),

@@ -50,9 +50,12 @@ every overflow is a device flag under the JAX package's stat names
 (``unique_overflow``, ``batch_overflow``, ``insert_overflow``), and a
 failed window drops its writes on the device and poisons the state, so
 later windows are no-ops until the host reads the flags, grows the right
-budget or the table, and replays.  Both give the same map.  Table updates
-are out of place: each window returns new tensors and never writes into
-the state it was given.
+budget or the table, and replays.  Both give the same map.  A budgeted
+window may stop before its writes (``commit=False``) and hand back a
+``grid.hash.PendingUpdate``, which ``grid.hash.commit_update`` writes or
+drops by a flag: the sharded engines commit every shard's window by the
+OR of all their flags.  Table updates are out of place: each window
+returns new tensors and never writes into the state it was given.
 """
 
 from __future__ import annotations
@@ -65,10 +68,11 @@ import torch
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
 from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     BUCKET_SLOTS,
-    _commit_failed,
-    _write_dropping,
+    PendingUpdate,
+    _fresh_plan,
     bucket_lookup,
     commit_insert,
+    commit_update,
     empty_key_rows,
     plan_fresh_insert,
     plan_insert,
@@ -80,7 +84,6 @@ from sonar_3d_reconstruction_tpu_torch.kernels.bin_apply import (
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
     CompactRecords,
     UniqueRecords,
-    _fit,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.logodds import probability_to_log_odds
 from sonar_3d_reconstruction_tpu_torch.ops.packing import (
@@ -240,6 +243,7 @@ def apply_brick_records_compact(
     lane_budget: Optional[int] = None,
     insert_budget: Optional[int] = None,
     vox_budget: Optional[int] = None,
+    commit: bool = True,
 ) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
     """Apply one window of B frames of box-key records to the brick map.
 
@@ -258,6 +262,8 @@ def apply_brick_records_compact(
     then be a (3,) device tensor, so nothing is read to the host.  The
     stats gain ``unique_overflow``, ``batch_overflow``, ``insert_overflow``,
     ``batch_n_unique`` and ``batch_n_need``, as in the JAX package.
+    ``commit=False`` (budgets only) returns the window's
+    ``grid.hash.PendingUpdate`` instead, for ``grid.hash.commit_update``.
     """
     mode = parse_dense_mode(dense_mode)
     raw = mode.raw
@@ -272,6 +278,7 @@ def apply_brick_records_compact(
                else torch.as_tensor(np.asarray(box_min))).to(device)
     budgeted = (brick_budget, lane_budget, insert_budget,
                 vox_budget) != (None,) * 4
+    _check_commit(budgeted, commit)
 
     # (brick, FRAME, offset) flat key: the frame field sits between brick
     # and offset, so one sort groups each brick's records by frame
@@ -313,7 +320,7 @@ def apply_brick_records_compact(
         g_hi, g_lo, g_ok = pack_brick_keys(corner, bb)
         auxs = auxs._replace(
             range_fail=auxs.range_fail | (valid_b & ~g_ok).any())
-        return _apply_window_budgeted(
+        pending = _prepare_window_budgeted(
             state, cfg, torch.where(valid_b, g_hi, EMPTY_HI),
             torch.where(valid_b, g_lo, EMPTY_HI), valid_b, s_flat[:lb],
             s_pay[:lb], starts, B=B, f_bits=f_bits, o=o, raw=raw,
@@ -325,6 +332,7 @@ def apply_brick_records_compact(
             vox_cap=(min(lb, max(vox_budget or lb, 1))
                      if mode.layout == "row" else None),
         )
+        return commit_update(pending) if commit else pending
     n_lanes, n_bricks = torch.stack(
         [seg_valid.sum(), (new_brick & seg_valid).sum()]
     ).tolist()
@@ -347,6 +355,12 @@ def apply_brick_records_compact(
         rec_valid=recs.valid, rec_n_occ=recs.n_occ, auxs=auxs,
         n_lanes=n_lanes, n_bricks=n_bricks,
     )
+
+
+def _check_commit(budgeted: bool, commit: bool) -> None:
+    if not (budgeted or commit):
+        raise ValueError("commit=False needs a budget: a count-sized window "
+                         "commits as it goes")
 
 
 def _compact_starts(is_start, brick_id, n_bricks, n_val, nb, empty):
@@ -379,55 +393,68 @@ def apply_brick_records_wide(
     lane_budget: Optional[int] = None,
     insert_budget: Optional[int] = None,
     vox_budget: Optional[int] = None,
+    commit: bool = True,
 ) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
     """Apply one window of B frames of two-word unique records (brick
     codes, ``frame_records`` without a box) to the brick map: the path of
     a window too wide for compact keys.  Same stats, budgets, failure
-    contract and map as ``apply_brick_records_compact`` (``vox_budget`` is
-    accepted and bounds nothing: the JAX package's wide window has no
-    row layout); with budgets its ``torch.unique`` still reads the
-    window's distinct bricks to the host.
+    contract, ``commit`` and map as ``apply_brick_records_compact``
+    (``vox_budget`` is accepted and bounds nothing: the JAX package's wide
+    window has no row layout).
 
     The records reach K1 in its documented (brick, frame, offset) order:
-    ``torch.unique`` ranks the window's distinct bricks in code order (the
-    order of the JAX package's compaction, so new bricks take the same
-    slots), and one sort of ``rank << (f_bits + o) | frame << o | offset``
-    orders the lanes.  K1 reads only the frame and offset fields of a key's
-    low word, and the brick of a lane from ``starts``.
+    each lane takes its brick's rank among the window's distinct bricks in
+    code order (the order of the JAX package's compaction, so new bricks
+    take the same slots), and one sort of ``rank << (f_bits + o) | frame
+    << o | offset`` orders the lanes.  K1 reads only the frame and offset
+    fields of a key's low word, and the brick of a lane from ``starts``.
+    Count-sized, ``torch.unique`` ranks the bricks (it reads their count to
+    the host); with budgets a sort, a cumsum and a scatter do, with no
+    read, and the first NB distinct bricks fill the brick rows.
     """
     B, U = recs.hi.shape
     bb = state.brick_bits
     o = 3 * bb
     f_bits = max(1, (B - 1).bit_length())
     device = state.log_odds.device
+    budgeted = (brick_budget, lane_budget, insert_budget,
+                vox_budget) != (None,) * 4
+    _check_commit(budgeted, commit)
 
     valid = recs.valid.reshape(-1)
     code = key_code(recs.hi.reshape(-1), recs.lo.reshape(-1), brick=True)
     bcode = torch.where(valid, code >> o, EMPTY64)
-    uniq, rank = torch.unique(bcode, return_inverse=True)
+    if budgeted:
+        nb = brick_budget or default_brick_budget(B, U)
+        uniq, rank, n_bricks = _rank_bricks(bcode, nb)
+    else:
+        uniq, rank = torch.unique(bcode, return_inverse=True)
     frame = torch.arange(B, device=device).repeat_interleave(U)
     # invalid lanes share the sentinel's rank, the last one
     flat = (rank << (f_bits + o)) | (frame << o) | (code & ((1 << o) - 1))
     s_flat, order = torch.sort(flat)
     count = recs.count.reshape(-1)
     payload = torch.where(valid, (count << 16) | recs.n_occ.reshape(-1), 0)
-    if (brick_budget, lane_budget, insert_budget,
-            vox_budget) != (None,) * 4:
-        nb = brick_budget or default_brick_budget(B, U)
+    if budgeted:
         lb = min(B * U, max(lane_budget or B * U, 1))
         n_lanes = valid.sum()
-        n_bricks = (uniq != EMPTY64).sum()
         n_val = torch.clamp(n_lanes, max=lb)
         valid_b = torch.arange(nb, device=device) < n_bricks
         starts = torch.minimum(torch.searchsorted(
             s_flat[:lb] >> (f_bits + o), torch.arange(nb + 1, device=device)
         ), n_val)
-        c_hi, c_lo = code_words(_fit(uniq, nb, EMPTY64) << o, brick=True)
+        c_hi, c_lo = code_words(uniq << o, brick=True)
         # the payload packs count in 16 bits: a voxel with 2^16+ candidates
         # in one frame is fatal, except in a frame that overflowed its
         # unique budget (its lanes mean nothing), as in the JAX package
         frame_ok = (recs.n_unique <= U).repeat_interleave(U)
-        return _apply_window_budgeted(
+        # the window's distinct voxels over every valid lane, as the JAX
+        # package's two-word window counts them (exact under a brick
+        # overflow too, where the rows' touched bits miss some)
+        vox = torch.sort(torch.where(valid, code, EMPTY64)).values
+        n_unique = (torch.cat([vox[:1] != EMPTY64, vox[1:] != vox[:-1]])
+                    & (vox != EMPTY64)).sum()
+        pending = _prepare_window_budgeted(
             state, cfg, torch.where(valid_b, c_hi, EMPTY_HI),
             torch.where(valid_b, c_lo, EMPTY_HI), valid_b, s_flat[:lb],
             payload[order[:lb]], starts, B=B, f_bits=f_bits, o=o, raw=False,
@@ -436,8 +463,9 @@ def apply_brick_records_wide(
             lanes_overflow=n_lanes > lb, brick_overflow=n_bricks > nb,
             rec_valid=recs.valid, rec_n_occ=recs.n_occ, auxs=auxs,
             n_lanes=n_lanes, n_bricks=n_bricks, insert_budget=insert_budget,
-            vox_cap=None,
+            vox_cap=None, n_unique=n_unique,
         )
+        return commit_update(pending) if commit else pending
     # the payload packs count in 16 bits: a voxel with 2^16+ candidates in
     # one frame is fatal, as in the JAX package
     pack_overflow = (valid & (count > 0xFFFF)).any()
@@ -459,6 +487,26 @@ def apply_brick_records_wide(
         rec_valid=recs.valid, rec_n_occ=recs.n_occ, auxs=auxs,
         n_lanes=n_lanes, n_bricks=n_bricks,
     )
+
+
+def _rank_bricks(bcode: torch.Tensor, nb: int):
+    """``torch.unique(bcode, return_inverse=True)`` with no host read, for a
+    budgeted window: ((NB,) the first NB distinct brick codes in ascending
+    order, ``EMPTY64`` past them, (N,) each lane's rank among the distinct
+    codes, the sentinel ``EMPTY64`` (invalid lanes) ranked last, () the
+    valid distinct bricks)."""
+    n = bcode.shape[0]
+    device = bcode.device
+    s_code, order = torch.sort(bcode)
+    new = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                     s_code[1:] != s_code[:-1]])
+    s_rank = torch.cumsum(new, dim=0) - 1
+    rank = torch.empty(n, dtype=torch.int64, device=device)
+    rank[order] = s_rank
+    first = new & (s_code != EMPTY64)
+    uniq = torch.full((nb + 1,), EMPTY64, dtype=torch.int64, device=device)
+    uniq[torch.where(first & (s_rank < nb), s_rank, nb)] = s_code
+    return uniq[:nb], rank, first.sum()
 
 
 def _apply_window_tail(
@@ -534,24 +582,27 @@ def _apply_window_tail(
     return new_state, stats
 
 
-def _apply_window_budgeted(
+def _prepare_window_budgeted(
     state: BrickGridState,
     cfg: MapperConfig,
     c_hi, c_lo, valid_b, s_flat, s_pay, starts,
     *,
     B, f_bits, o, raw, pack_overflow, frame_overflow, lanes_overflow,
     brick_overflow, rec_valid, rec_n_occ, auxs, n_lanes, n_bricks,
-    insert_budget, vox_cap,
-) -> Tuple[BrickGridState, Dict[str, torch.Tensor]]:
-    """``_apply_window_tail`` at fixed widths with no host read: table ops
-    at the NB brick rows (padded rows, ``valid_b`` false, are neither
-    inserted nor written), K1 over the L record lanes, and a commit that
-    every failure cause turns into dropped writes, as in the JAX package.
+    insert_budget, vox_cap, n_unique=None,
+) -> PendingUpdate:
+    """``_apply_window_tail`` at fixed widths with no host read, up to its
+    writes: table ops at the NB brick rows (padded rows, ``valid_b``
+    false, are neither inserted nor written), K1 over the L record lanes,
+    and the failure flag of every cause, as in the JAX package; the commit
+    (``grid.hash.commit_update``) turns a failure into dropped writes.
     ``vox_cap`` bounds the window's distinct voxels (the JAX ``"row"``
-    layout's budget; None: unbounded)."""
+    layout's budget; None: unbounded).  ``n_unique``, the window's
+    distinct voxels, defaults to the rows' touched bits, as the JAX
+    package's box-key window counts them (short under a brick
+    overflow)."""
     vol = state.brick_volume
     cap = state.capacity
-    dtype = state.log_odds.dtype
 
     bucket, found, found_slot, fill = bucket_lookup(state.key_rows, c_hi, c_lo)
     plan = plan_insert(state.key_rows, c_hi, c_lo, valid_b & ~found, bucket,
@@ -575,49 +626,49 @@ def _apply_window_budgeted(
         num_occupied = rec_occ.sum(dim=1)
         num_free = (rec_valid & ~rec_occ).sum(dim=1)
     upd = upd & valid_b[:, None]
-    n_unique = upd.sum()
+    if n_unique is None:
+        n_unique = upd.sum()
     batch_overflow = brick_overflow | lanes_overflow
     if vox_cap is not None:
         batch_overflow = batch_overflow | (n_unique > vox_cap)
     failed = (batch_overflow | plan.overflowed | auxs.range_fail.any()
               | frame_overflow | pack_overflow | state.poisoned)
-    n_new = (upd & ~_unpack_touched(touched_cur, vol)).sum()
-    w_slots = torch.where(failed, cap, slots)
-    new_state = BrickGridState(
-        key_rows=commit_insert(state.key_rows, plan, abort=failed),
-        log_odds=_write_dropping(state.log_odds, w_slots, v),
-        touched=_write_dropping(state.touched, w_slots,
-                                touched_cur | _pack_touched(upd)),
-        **_commit_failed(state, failed, n_new, auxs, dtype),
-    )
 
     def per_frame(x):
         return x.expand(B)
 
-    return new_state, {
-        "num_occupied": torch.where(failed, 0, num_occupied),
-        "num_free": torch.where(failed, 0, num_free),
-        "num_candidates": torch.where(failed, 0, auxs.n_valid),
-        "overflowed": per_frame(failed),
-        "unique_overflow": per_frame(frame_overflow),
-        "batch_overflow": per_frame(batch_overflow),
-        "insert_overflow": per_frame(plan.budget_overflow),
-        "batch_n_unique": per_frame(n_unique),
-        "batch_n_bricks": per_frame(n_bricks),
-        "batch_n_lanes": per_frame(n_lanes),
-        "batch_n_need": per_frame(plan.n_need),
-        "pack_overflow": per_frame(pack_overflow),
-        "range_fail": auxs.range_fail,
-    }
+    return PendingUpdate(
+        state=state, plan=plan, slots=slots, values=v,
+        touched=touched_cur | _pack_touched(upd),
+        n_new=(upd & ~_unpack_touched(touched_cur, vol)).sum(), auxs=auxs,
+        failed=failed,
+        stats={
+            "num_occupied": num_occupied,
+            "num_free": num_free,
+            "num_candidates": auxs.n_valid,
+            "overflowed": per_frame(failed),
+            "unique_overflow": per_frame(frame_overflow),
+            "batch_overflow": per_frame(batch_overflow),
+            "insert_overflow": per_frame(plan.budget_overflow),
+            "batch_n_unique": per_frame(n_unique),
+            "batch_n_bricks": per_frame(n_bricks),
+            "batch_n_lanes": per_frame(n_lanes),
+            "batch_n_need": per_frame(plan.n_need),
+            "pack_overflow": per_frame(pack_overflow),
+            "range_fail": auxs.range_fail,
+        },
+    )
 
 
-def rehash_bricks(state: BrickGridState, new_capacity: int) -> BrickGridState:
-    """Grow the table (clears ``poisoned`` for replay), doubling again until
-    every existing bucket fits.  Existing keys are re-inserted in slot
+def rehash_bricks_once(
+    state: BrickGridState, new_capacity: int
+) -> Tuple[BrickGridState, torch.Tensor]:
+    """The table re-built at ``new_capacity`` bricks (``poisoned``
+    cleared), with no read: (state, () bool a bucket overflowed, in which
+    case the state is not the map).  Existing keys are re-inserted in slot
     order, as the JAX package does."""
     hi, lo = state.key_hi, state.key_lo
-    fresh, plan = plan_fresh_insert(new_capacity, hi, lo, hi != EMPTY_HI)
-    new_capacity = fresh.shape[0] * BUCKET_SLOTS
+    fresh, plan = _fresh_plan(new_capacity, hi, lo, hi != EMPTY_HI)
     # empty old slots map to the dump row new_capacity, cut off below
     slots = plan.slots
 
@@ -634,7 +685,17 @@ def rehash_bricks(state: BrickGridState, new_capacity: int) -> BrickGridState:
         max_bounds=state.max_bounds,
         used=state.used,
         poisoned=torch.zeros_like(state.poisoned),
-    )
+    ), plan.overflowed
+
+
+def rehash_bricks(state: BrickGridState, new_capacity: int) -> BrickGridState:
+    """Grow the table (clears ``poisoned`` for replay), doubling again until
+    every existing bucket fits (``rehash_bricks_once``)."""
+    while True:
+        grown, overflowed = rehash_bricks_once(state, new_capacity)
+        if not bool(overflowed):
+            return grown
+        new_capacity *= 2
 
 
 def _brick_voxel_keys(

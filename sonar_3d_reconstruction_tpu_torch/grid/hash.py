@@ -35,11 +35,19 @@ under the JAX package's stat names (``unique_overflow``,
 writes on the device and poisons the state, so later updates are no-ops
 until the host reads the flags, grows the right budget or the table, and
 replays.
+
+A budgeted update runs in two halves: the first computes its writes and
+its local failure flag (``PendingUpdate``: ``prepare_frame_budgeted``,
+``apply_records_batched(commit=False)``), the second
+(``commit_update``) writes them or drops them all by a flag.  A single
+map commits by its own flag; the sharded engines (parallel/shard.py)
+commit every shard by the OR of all the shards' flags, reduced on the
+device (the JAX package's ``fail_reduce``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -393,12 +401,61 @@ def _commit_failed(state, failed, n_new, auxs, dtype):
     )
 
 
-def _apply_frame_budgeted(
+class PendingUpdate(NamedTuple):
+    """The first half of a budgeted update: its writes, not yet made, and
+    its local failure flag.  ``commit_update`` makes them or drops them."""
+
+    state: Any               # the map state the update read (hash or brick)
+    plan: InsertPlan         # new keys to insert
+    slots: torch.Tensor      # (N,) slots (brick: rows) to write; capacity:
+                             # none
+    values: torch.Tensor     # (N,) values (brick: (N, vol) rows) at slots
+    touched: Optional[torch.Tensor]  # (N, words) touched words (brick)
+    n_new: torch.Tensor      # () int64 growth of ``used``
+    auxs: Any                # ops.records.FrameAux (one frame or stacked)
+    failed: torch.Tensor     # () bool local failure flag
+    stats: Dict[str, torch.Tensor]  # the stats before a failure zeroes them
+
+
+# the stats a failed update reports as zero
+_ZEROED_ON_FAILURE = ("num_occupied", "num_free", "num_candidates")
+
+
+def commit_update(
+    pending: PendingUpdate, failed: Optional[torch.Tensor] = None
+) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """The second half of a budgeted update: (new state, stats).  Every
+    write is made unless ``failed`` (a () bool on the state's device;
+    default the update's own flag), which turns each into a dropped write
+    and poisons the state, all on the device.  ``failed`` must cover the
+    update's own flag: a sharded engine passes the OR of its shards'."""
+    failed = pending.failed if failed is None else failed
+    state = pending.state
+    dtype = state.log_odds.dtype
+    w_slots = torch.where(failed, state.capacity, pending.slots)
+    fields = dict(
+        key_rows=commit_insert(state.key_rows, pending.plan, abort=failed),
+        log_odds=_write_dropping(state.log_odds, w_slots, pending.values),
+        **_commit_failed(state, failed, pending.n_new, pending.auxs, dtype),
+    )
+    if pending.touched is not None:
+        fields["touched"] = _write_dropping(state.touched, w_slots,
+                                           pending.touched)
+    stats = dict(pending.stats)
+    for k in _ZEROED_ON_FAILURE:
+        stats[k] = torch.where(failed, 0, stats[k])
+    stats["overflowed"] = failed.expand(stats["range_fail"].shape)
+    return type(state)(**fields), stats
+
+
+def prepare_frame_budgeted(
     state: HashGridState, rec: UniqueRecords, aux, cfg: MapperConfig
-) -> Tuple[HashGridState, Dict[str, torch.Tensor]]:
-    """``apply_frame_records`` over budgeted records, on the device only:
-    a unique-budget or bucket overflow, a key out of range or a poisoned
-    state drops every write and poisons the state."""
+) -> PendingUpdate:
+    """The first half of one frame's budgeted update over its records
+    (``update_hash_grid(unique_budget=)``), on the device only: a
+    unique-budget or bucket overflow, a key out of range or a poisoned
+    state sets the failure flag.  Stats as ``update_hash_grid`` with a
+    budget reports them."""
     capacity = state.capacity
     dtype = state.log_odds.dtype
     valid = rec.valid
@@ -411,21 +468,18 @@ def _apply_frame_budgeted(
     lo_sum, count, occupied = chain_terms(rec.count, rec.n_occ, dtype, cfg)
     cur = state.log_odds[torch.clamp(slots, max=capacity - 1)]
     new_val = finalize_voxel_updates(cur, lo_sum, count, occupied, cfg)
-    new_state = HashGridState(
-        key_rows=commit_insert(state.key_rows, plan, abort=failed),
-        log_odds=_write_dropping(
-            state.log_odds, torch.where(failed, capacity, slots), new_val),
-        **_commit_failed(state, failed, plan.fits.sum(), aux, dtype),
+    return PendingUpdate(
+        state=state, plan=plan, slots=slots, values=new_val, touched=None,
+        n_new=plan.fits.sum(), auxs=aux, failed=failed,
+        stats={
+            "num_occupied": (valid & occupied).sum(),
+            "num_free": (valid & ~occupied).sum(),
+            "num_candidates": aux.n_valid,
+            "overflowed": failed,
+            "unique_overflow": rec.overflowed,
+            "range_fail": aux.range_fail,
+        },
     )
-    zero = torch.zeros((), dtype=torch.int64, device=slots.device)
-    return new_state, {
-        "num_occupied": torch.where(failed, zero, (valid & occupied).sum()),
-        "num_free": torch.where(failed, zero, (valid & ~occupied).sum()),
-        "num_candidates": torch.where(failed, zero, aux.n_valid),
-        "overflowed": failed,
-        "unique_overflow": rec.overflowed,
-        "range_fail": aux.range_fail,
-    }
 
 
 def update_hash_grid(
@@ -471,7 +525,7 @@ def update_hash_grid(
         n_valid=n_valid,
     )
     if unique_budget is not None:
-        return _apply_frame_budgeted(state, rec, aux, cfg)
+        return commit_update(prepare_frame_budgeted(state, rec, aux, cfg))
     return apply_frame_records(state, rec, aux, cfg)
 
 
@@ -483,6 +537,7 @@ def apply_records_batched(
     batch_budget: Optional[int] = None,
     lane_budget: Optional[int] = None,
     insert_budget: Optional[int] = None,
+    commit: bool = True,
 ) -> Tuple[HashGridState, Dict[str, torch.Tensor]]:
     """Apply a window of B frames with one set of table operations.
 
@@ -503,12 +558,19 @@ def apply_records_batched(
     Any of ``batch_budget`` (distinct voxels; default
     ``default_batch_budget(B, U)``), ``lane_budget`` (record lanes;
     default twice that) or ``insert_budget`` (new keys) runs the JAX
-    package's fixed-width window instead (``_apply_batched_budgeted``):
+    package's fixed-width window instead (``_prepare_batched_budgeted``):
     the same map, nothing read to the host, and the JAX package's stats.
+    ``commit=False`` (budgets only) returns its ``PendingUpdate`` instead,
+    for ``commit_update``.
     """
     if (batch_budget, lane_budget, insert_budget) != (None, None, None):
-        return _apply_batched_budgeted(state, recs, auxs, cfg, batch_budget,
-                                       lane_budget, insert_budget)
+        pending = _prepare_batched_budgeted(state, recs, auxs, cfg,
+                                            batch_budget, lane_budget,
+                                            insert_budget)
+        return commit_update(pending) if commit else pending
+    if not commit:
+        raise ValueError("commit=False needs a budget: a count-sized window "
+                         "commits as it goes")
     B, U = recs.hi.shape
     n = B * U
     dtype, device = state.log_odds.dtype, state.log_odds.device
@@ -579,17 +641,17 @@ def apply_records_batched(
     return new_state, stats
 
 
-def _apply_batched_budgeted(
+def _prepare_batched_budgeted(
     state: HashGridState, recs: UniqueRecords, auxs, cfg: MapperConfig,
     batch_budget: Optional[int], lane_budget: Optional[int],
     insert_budget: Optional[int],
-) -> Tuple[HashGridState, Dict[str, torch.Tensor]]:
-    """``apply_records_batched`` at the JAX package's fixed widths: the
-    sort runs over all B*U lanes, the chain over the first Lb, and the
-    table ops over ``batch_budget`` compacted voxels; the chain takes all
-    B - 1 rank passes.  A batch, lane, insert, unique or bucket overflow,
-    a key out of range or a poisoned state drops every write and poisons
-    the state, all on the device."""
+) -> PendingUpdate:
+    """The first half of ``apply_records_batched`` at the JAX package's
+    fixed widths: the sort runs over all B*U lanes, the chain over the
+    first Lb, and the table ops over ``batch_budget`` compacted voxels; the
+    chain takes all B - 1 rank passes.  A batch, lane, insert, unique or
+    bucket overflow, a key out of range or a poisoned state sets the
+    failure flag, all on the device."""
     B, U = recs.hi.shape
     n = B * U
     capacity = state.capacity
@@ -653,53 +715,59 @@ def _apply_batched_budgeted(
     next_start = torch.cat([c_pos[1:], c_pos.new_full((1,), lb)])
     end_pos = torch.where(lane + 1 < n_unique, next_start - 1, n_lanes - 1)
     new_unique = torch.where(valid_u, v[torch.clamp(end_pos, 0, lb - 1)], 0)
-
-    new_state = HashGridState(
-        key_rows=commit_insert(state.key_rows, plan, abort=failed),
-        log_odds=_write_dropping(
-            state.log_odds, torch.where(failed, capacity, slots), new_unique),
-        **_commit_failed(state, failed, plan.fits.sum(), auxs, dtype),
-    )
     rec_occ = rec_valid & (recs.n_occ > 0)
 
     def per_frame(x):
         return x.expand(B)
 
-    return new_state, {
-        "num_occupied": torch.where(failed, 0, rec_occ.sum(dim=1)),
-        "num_free": torch.where(failed, 0, (rec_valid & ~rec_occ).sum(dim=1)),
-        "num_candidates": torch.where(failed, 0, auxs.n_valid),
-        "overflowed": per_frame(failed),
-        "unique_overflow": per_frame(frame_overflow),
-        "batch_overflow": per_frame(batch_overflow | lanes_overflow),
-        "insert_overflow": per_frame(plan.budget_overflow),
-        "batch_n_unique": per_frame(n_unique),
-        "batch_n_need": per_frame(plan.n_need),
-        "range_fail": auxs.range_fail,
-    }
+    return PendingUpdate(
+        state=state, plan=plan, slots=slots, values=new_unique, touched=None,
+        n_new=plan.fits.sum(), auxs=auxs, failed=failed,
+        stats={
+            "num_occupied": rec_occ.sum(dim=1),
+            "num_free": (rec_valid & ~rec_occ).sum(dim=1),
+            "num_candidates": auxs.n_valid,
+            "overflowed": per_frame(failed),
+            "unique_overflow": per_frame(frame_overflow),
+            "batch_overflow": per_frame(batch_overflow | lanes_overflow),
+            "insert_overflow": per_frame(plan.budget_overflow),
+            "batch_n_unique": per_frame(n_unique),
+            "batch_n_need": per_frame(plan.n_need),
+            "range_fail": auxs.range_fail,
+        },
+    )
+
+
+def _fresh_plan(capacity: int, hi, lo, need) -> Tuple[torch.Tensor, InsertPlan]:
+    """(empty key rows of ``capacity`` slots, plan inserting the distinct
+    keys ``need`` flags), with no read: the plan's ``overflowed`` says
+    whether a bucket overflowed.  An empty table finds nothing and every
+    bucket's fill is 0, so no bucket rows are gathered."""
+    fresh = empty_key_rows(capacity, hi.device)
+    bucket = mix2(hi, lo) & (fresh.shape[0] - 1)
+    return fresh, plan_insert(fresh, hi, lo, need, bucket,
+                              torch.zeros_like(bucket))
 
 
 def plan_fresh_insert(capacity: int, hi, lo, need) -> Tuple[torch.Tensor, InsertPlan]:
-    """(empty key rows, plan) inserting the distinct keys ``need`` flags
-    into an empty table of ``capacity`` slots, doubling it until no bucket
-    overflows.  An empty table finds nothing and every bucket's fill is 0,
-    so no bucket rows are gathered."""
+    """``_fresh_plan``, doubling the table until no bucket overflows."""
     while True:
-        fresh = empty_key_rows(capacity, hi.device)
-        bucket = mix2(hi, lo) & (fresh.shape[0] - 1)
-        plan = plan_insert(fresh, hi, lo, need, bucket, torch.zeros_like(bucket))
+        fresh, plan = _fresh_plan(capacity, hi, lo, need)
         if not bool(plan.overflowed):
             return fresh, plan
         capacity *= 2
 
 
-def rehash(state: HashGridState, new_capacity: int) -> HashGridState:
-    """Grow the table (clears ``poisoned`` for replay), doubling again until
-    every existing bucket fits.  Existing keys are re-inserted in slot
-    order, as the JAX package does."""
+def rehash_once(
+    state: HashGridState, new_capacity: int
+) -> Tuple[HashGridState, torch.Tensor]:
+    """The table re-built at ``new_capacity`` slots (``poisoned``
+    cleared), with no read: (state, () bool a bucket overflowed, in which
+    case the state is not the map and a larger capacity is needed).
+    Existing keys are re-inserted in slot order, as the JAX package
+    does."""
     hi, lo = state.key_hi, state.key_lo
-    fresh, plan = plan_fresh_insert(new_capacity, hi, lo, hi != EMPTY_HI)
-    new_capacity = fresh.shape[0] * BUCKET_SLOTS
+    fresh, plan = _fresh_plan(new_capacity, hi, lo, hi != EMPTY_HI)
     # empty old slots map to the dump slot new_capacity, cut off below
     log_odds = state.log_odds.new_zeros(new_capacity + 1)
     log_odds[plan.slots] = state.log_odds
@@ -710,7 +778,17 @@ def rehash(state: HashGridState, new_capacity: int) -> HashGridState:
         max_bounds=state.max_bounds,
         used=plan.fits.sum(),
         poisoned=torch.zeros_like(state.poisoned),
-    )
+    ), plan.overflowed
+
+
+def rehash(state: HashGridState, new_capacity: int) -> HashGridState:
+    """Grow the table (clears ``poisoned`` for replay), doubling again until
+    every existing bucket fits (``rehash_once``)."""
+    while True:
+        grown, overflowed = rehash_once(state, new_capacity)
+        if not bool(overflowed):
+            return grown
+        new_capacity *= 2
 
 
 def load_voxels_hash(

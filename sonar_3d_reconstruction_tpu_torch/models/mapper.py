@@ -39,10 +39,14 @@ package.  ``map_sequence`` refuses it, as the JAX mapper does.
 
 Fan tables are built once per image geometry for the per-ping path
 (exact, uncapped, as the JAX mapper builds them); ``map_sequence`` lets
-``map_ping_sequence`` size its lattice caps for the batch.  The JAX
-mapper's sticky box-key bits and unique / brick budgets exist to avoid
-XLA recompiles; the port sizes every window from its counts, so it keeps
-none, and needs no ``compute_window_boxes(min_bits=)``.
+``map_ping_sequence`` size its lattice caps for the batch.  The sharded
+backend keeps the JAX mapper's sticky budgets: each call hands the
+frame-parallel engine the budgets the last one settled on (its
+``effective``), so a budget that grew once is not grown again; with
+none the engine is count-sized.  The JAX mapper's sticky box-key bits
+and its single-map unique / brick budgets exist to avoid XLA
+recompiles; the port's single-map windows are sized from their counts,
+so it keeps neither, and needs no ``compute_window_boxes(min_bits=)``.
 """
 
 from __future__ import annotations
@@ -147,6 +151,9 @@ class SonarMapper:
                            else torch.empty(0, device=device).device)
         self._read = _READS.get(backend)
         self.dense_spec = None
+        # the sharded engine's budgets, carried from call to call (the JAX
+        # mapper's sticky budgets; empty: count-sized)
+        self._sharded_budgets: Dict[str, Any] = {}
         if backend == "brick-sharded":
             self.state = shard_brick.init_sharded_brick_grid(
                 self.mesh,
@@ -219,10 +226,15 @@ class SonarMapper:
              tables: Optional[FanTables] = None) -> Dict[str, np.ndarray]:
         """Map pings into this mapper's state; per-ping stats."""
         if self.backend == "brick-sharded":
+            effective: Dict[str, Any] = {}
             self.state, stats = map_ping_sequence_sharded_frames(
                 images, positions, quaternions, self.cfg, state=self.state,
                 dtype=self.dtype, window=window, tables=tables,
+                effective=effective, **self._sharded_budgets,
             )
+            # sticky: the next call starts at the budgets this one grew to
+            self._sharded_budgets = {
+                k: v for k, v in effective.items() if v is not None}
         else:
             self.state, stats = map_ping_sequence(
                 images, positions, quaternions, self.cfg, device=self.device,

@@ -41,11 +41,24 @@ Commit.  A step (a ping or a window) is all-or-nothing across the shards:
 every apply is out of place, and its result commits only when no shard
 failed (the counterpart of JAX's ``psum`` ``fail_reduce``); otherwise every
 shard keeps its table, poisoned, and the host loop (``run_grow_replay``)
-doubles every shard's table and replays.  The sharded windows are sized
-from their counts (the fixed-width budgets are the single-map
-pipeline's), so JAX's unique, batch and insert overflow branches have no
-counterpart here: only bucket growth and the fatal key-range (and, on
-bricks, count-packing) errors remain.
+grows and replays.
+
+Count-sized and budgeted steps.  Without budgets a step is sized from its
+counts: each shard reads its sizes and flags to the host, and the host
+commits (``commit``, ``host_stats``).  With the JAX package's budgets
+(``unique_budget``, ``batch_budget``, ``lane_budget``, ``insert_budget``;
+the brick engines add theirs) every shard runs its step at those fixed
+widths and stops before its writes (a ``grid.hash.PendingUpdate``); the
+OR of every shard's failure flag is taken on the device
+(``reduce_failed``) and each shard commits by it
+(``commit_budgeted``), so a step commits on every shard or on none with
+no host read.  The step's stats stay on the device, reduced over the
+shards as the JAX engines' ``psum`` / ``pmax`` reduce them
+(``reduce_stats``: global sums, per-shard maxima ``*_max``, causes
+or-ed), and ``scan_windows`` reads them once a scan; a failed step
+poisons every shard, so the later steps of the scan are no-ops.  The host
+loop then grows the budget that JAX's cause order names, or the tables,
+and replays.  Both give the same map and per-ping stats.
 
 The hash engine.  ``ShardedHashState`` holds one ``grid.hash`` map a
 shard.  ``sharded_ping_step`` and ``scan_pings_sharded`` apply one ping at
@@ -54,13 +67,17 @@ at a time (``apply_records_batched``), and ``map_ping_sequence_sharded``
 maps a recorded sequence with growth and replay.  They are plain functions
 in place of the JAX package's jit factories (``make_sharded_ping_step``,
 ``make_scan_pings_sharded``, ``make_window_scan_sharded``): there is
-nothing to compile.
+nothing to compile.  With budgets the window-1 step still computes each
+ping's records once, at full width on ``mesh[0]``, and cuts fixed-width
+owner blocks of ``unique_budget`` lanes from them with JAX's per-shard
+unique overflow.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -71,11 +88,16 @@ from sonar_3d_reconstruction_tpu_torch.geometry import batched_sonar_to_world
 from sonar_3d_reconstruction_tpu_torch.grid.hash import (
     EMPTY,
     HashGridState,
+    PendingUpdate,
     apply_frame_records,
     apply_records_batched,
+    commit_update,
+    default_batch_budget,
+    effective_unique_budget,
     hash_state_to_numpy,
     init_hash_grid,
-    rehash,
+    prepare_frame_budgeted,
+    rehash_once,
     touched_voxels_hash,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
@@ -85,6 +107,7 @@ from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
 )
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
     UniqueRecords,
+    _budget_slice,
     dedup_frame,
     dedup_frame_grouped,
 )
@@ -103,8 +126,12 @@ from sonar_3d_reconstruction_tpu_torch.ops.records import (
     stack_frame_records,
 )
 from sonar_3d_reconstruction_tpu_torch.pipeline import (
+    HASH_BUDGET_STAT_DTYPES,
     HASH_STAT_DTYPES,
+    HASH_W1_BUDGET_STAT_DTYPES,
     MAX_GROW_RETRIES,
+    _insert_budget,
+    _read_stats,
 )
 
 Mesh = Tuple[torch.device, ...]
@@ -114,6 +141,13 @@ Mesh = Tuple[torch.device, ...]
 # distinct voxels ``batch_n_unique`` summed over the shards) and the
 # largest shard's distinct voxels
 SHARDED_HASH_STAT_DTYPES = dict(HASH_STAT_DTYPES, batch_n_unique_max=np.int64)
+# the budgeted steps' stats, the JAX engines' keys: the window engine's
+# (the global sums and the per-shard maxima of the window sizes) and the
+# per-ping step's
+SHARDED_HASH_BUDGET_STAT_DTYPES = dict(
+    HASH_BUDGET_STAT_DTYPES, batch_n_unique_max=np.int64,
+    batch_n_need_max=np.int64)
+SHARDED_HASH_W1_BUDGET_STAT_DTYPES = HASH_W1_BUDGET_STAT_DTYPES
 
 
 def canonical_device(device) -> torch.device:
@@ -210,9 +244,11 @@ def owned_frame_records(
     cfg: MapperConfig,
     dtype: torch.dtype,
     brick_bits: int,
+    unique_budget: Optional[int] = None,
 ) -> Tuple[UniqueRecords, FrameAux]:
     """One ping -> (the unique records of the voxels ``shard`` owns, the
-    frame's FrameAux), on the image's device.
+    frame's FrameAux), on the image's device; ``unique_budget`` lanes wide
+    when it is given (ops/dedup.py).
 
     Keys are voxel codes (``brick_bits`` 0) or brick codes; the aux is the
     full frame's (``_frame_candidates``) but for ``n_valid``, which counts
@@ -221,7 +257,8 @@ def owned_frame_records(
         image, T, n_shards, tables=tables, cfg=cfg, dtype=dtype,
         brick_bits=brick_bits)
     active = valid & (owner == shard)
-    rec = dedup_frame(hi, lo, occ, active, brick=brick_bits > 0)
+    rec = dedup_frame(hi, lo, occ, active, brick=brick_bits > 0,
+                      unique_budget=unique_budget)
     return rec, aux._replace(n_valid=active.sum())
 
 
@@ -288,6 +325,34 @@ def owner_block(
             FrameAux(*(x.to(device) for x in aux)))
 
 
+def owner_block_budgeted(
+    blocks: OwnerBlocks, shard: int, unique_budget: int, device: torch.device
+) -> Tuple[UniqueRecords, FrameAux]:
+    """``owner_block`` at a fixed width, with no host read: shard
+    ``shard``'s records in ``unique_budget`` lanes (a gather from its
+    block's start, ``EMPTY_HI`` past its count) and JAX's per-shard unique
+    overflow, which the shard's own dedup would report: more records than
+    lanes, or more owned candidates than the dedup's compaction slice
+    (``n_unique`` then N + 1, N the frame's candidate lanes)."""
+    rec = blocks.rec
+    n = rec.hi.shape[0]
+    a = blocks.starts[shard]
+    n_rec = blocks.starts[shard + 1] - a
+    lane = torch.arange(unique_budget, device=a.device)
+    idx = torch.clamp(a + lane, max=n - 1)
+    keep = lane < n_rec
+    owned = blocks.counts[shard]
+    n_unique = torch.where(owned > _budget_slice(n, unique_budget, 0), n + 1,
+                           n_rec)
+    lanes = (torch.where(keep, rec.hi[idx], EMPTY_HI),
+             torch.where(keep, rec.lo[idx], EMPTY_HI),
+             torch.where(keep, rec.count[idx], 0),
+             torch.where(keep, rec.n_occ[idx], 0), n_unique)
+    aux = blocks.aux._replace(n_valid=owned)
+    return (UniqueRecords(*(x.to(device) for x in lanes)),
+            FrameAux(*(x.to(device) for x in aux)))
+
+
 def poison(state):
     """A sharded map (``shards`` of per-shard states) with every shard
     poisoned: the result of a failed step."""
@@ -334,6 +399,85 @@ def commit(state, results, stats: Dict[str, np.ndarray], sizes=()):
     return type(state)(tuple(new for new, _ in results))
 
 
+def unpoison(state):
+    """A sharded map with ``poisoned`` cleared on every shard: the replay
+    after a budget grew (the tables keep their capacity)."""
+    return type(state)(tuple(
+        s._replace(poisoned=torch.zeros_like(s.poisoned)) for s in state.shards
+    ))
+
+
+def reduce_failed(flags: List[torch.Tensor], mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
+    """{device: the OR of every shard's () bool failure flag}, one copy on
+    each distinct device of the mesh, with no host read: the counterpart
+    of the JAX engines' ``psum`` ``fail_reduce``.  On a repeated mesh every
+    copy is the same tensor; a copy to another card does not wait for
+    the host."""
+    dev0 = mesh[0]
+    failed = torch.stack([f.to(dev0) for f in flags]).any()
+    return {d: failed.to(d, non_blocking=d.type == "cuda")
+            for d in dict.fromkeys(mesh)}
+
+
+def commit_budgeted(state, pendings: List[PendingUpdate], extra=None):
+    """Commit every shard's budgeted step by the OR of all the shards'
+    failure flags (and ``extra``, a () bool of failures found outside the
+    applies), on the device: every shard applies or none does.  Returns
+    (state, each shard's step stats, on its device)."""
+    flags = [p.failed for p in pendings]
+    if extra is not None:
+        flags.append(extra)
+    failed = reduce_failed(flags, state.mesh)
+    out = [commit_update(p, failed[d]) for p, d in zip(pendings, state.mesh)]
+    return type(state)(tuple(new for new, _ in out)), [w for _, w in out]
+
+
+class StatReduce(NamedTuple):
+    """How a budgeted step's per-shard stats reduce over the shards, as
+    the JAX engines' collectives reduce them."""
+
+    sums: Tuple[str, ...] = ()     # psum: the global value
+    maxima: Tuple[str, ...] = ()   # pmax, as ``<key>_max``
+    ors: Tuple[str, ...] = ()      # psum > 0 of a flag
+    first: Tuple[str, ...] = ()    # equal on every shard: shard 0's
+
+
+def reduce_stats(per_shard: List[Dict[str, torch.Tensor]], device,
+                 spec: StatReduce) -> Dict[str, torch.Tensor]:
+    """One step's per-shard stats (each a dict of (B,) or () tensors on
+    its shard's device) reduced over the shards on ``device``, with no
+    host read: the global sums, the per-shard maxima and the or-ed flags
+    of ``spec``, as (B,) int64 tensors."""
+    keys = list(per_shard[0])
+    B = per_shard[0]["range_fail"].reshape(-1).shape[0]
+    table = torch.stack([
+        torch.stack([w[k].to(torch.int64).expand(B) for k in keys]).to(device)
+        for w in per_shard
+    ])
+    row = {k: table[:, i] for i, k in enumerate(keys)}
+    out = {k: row[k][0] for k in spec.first}
+    out.update({k: row[k].sum(dim=0) for k in spec.sums})
+    out.update({k + "_max": row[k].amax(dim=0) for k in spec.maxima})
+    out.update({k: row[k].any(dim=0).to(torch.int64) for k in spec.ors})
+    return out
+
+
+# the JAX hash window engine's reduce (parallel/shard.py's local_window)
+HASH_REDUCE = StatReduce(
+    sums=("num_occupied", "num_free", "num_candidates", "batch_n_unique",
+          "batch_n_need"),
+    maxima=("batch_n_unique", "batch_n_need"),
+    ors=("unique_overflow", "batch_overflow", "insert_overflow"),
+    first=("overflowed", "range_fail"),
+)
+# the JAX per-ping step's (parallel/shard.py's _local_update)
+HASH_W1_REDUCE = StatReduce(
+    sums=("num_occupied", "num_free", "num_candidates"),
+    ors=("unique_overflow",),
+    first=("overflowed", "range_fail"),
+)
+
+
 def replicated_step(
     state,
     frames: range,
@@ -368,16 +512,62 @@ def replicated_step(
     return commit(state, results, stats, sizes), stats
 
 
+def replicated_step_budgeted(
+    state,
+    frames: range,
+    *,
+    apply: Callable,
+    apply_kw: Callable[[int], Dict[str, Any]],
+    brick_bits: int,
+    unique_budget: int,
+    reduce: StatReduce,
+    images_dev: Dict[torch.device, torch.Tensor],
+    T_dev: Dict[torch.device, torch.Tensor],
+    tables: FanTables,
+    cfg: MapperConfig,
+    dtype: torch.dtype,
+):
+    """``replicated_step`` at fixed widths, with no host read: each shard's
+    records are ``unique_budget`` lanes a frame, its apply runs with the
+    budgets ``apply_kw(first frame)`` gives up to its writes, and the window
+    commits on every shard or on none by the device-side OR of their
+    flags.  Returns (state, the window's stats on ``mesh[0]``, reduced
+    over the shards by ``reduce``)."""
+    mesh = state.mesh
+    kw = apply_kw(frames.start)
+    pendings = []
+    for s, (shard, dev) in enumerate(zip(state.shards, mesh)):
+        recs, auxs = stack_frame_records([
+            owned_frame_records(images_dev[dev][i], T_dev[dev][i], s,
+                                len(mesh), tables=tables, cfg=cfg,
+                                dtype=dtype, brick_bits=brick_bits,
+                                unique_budget=unique_budget)
+            for i in frames
+        ], cut=False)
+        pendings.append(apply(shard, recs, auxs, cfg, commit=False, **kw))
+    state, wins = commit_budgeted(state, pendings)
+    return state, reduce_stats(wins, mesh[0], reduce)
+
+
 def scan_windows(
     state, start: int, *, n_frames: int, window: int, step: Callable,
-    stat_dtypes: Dict[str, type],
+    stat_dtypes: Dict[str, type], budgeted: bool = False,
 ):
     """Steps ``step(state, frames)`` over windows of ``window`` frames from
     frame ``start`` (a window boundary) to ``n_frames``; returns (state,
-    per-frame host stats (n_frames,)).  Stops at the first failed window:
-    its frames and every later one report ``overflowed``."""
+    per-frame host stats (n_frames,)).  Count-sized, it stops at the first
+    failed window: its frames and every later one report ``overflowed``.
+    ``budgeted`` steps return device stats and never read: every window
+    runs (a failed one poisons every shard, so the later ones fail too),
+    and the stats are read once, at the end."""
     if start % window:
         raise ValueError(f"start {start} is not a multiple of window {window}")
+    if budgeted:
+        done = []
+        for w0 in range(start, n_frames, window):
+            state, win = step(state, range(w0, min(w0 + window, n_frames)))
+            done.append(win)
+        return state, _read_stats(done, stat_dtypes, n_frames, start)
     stats = {k: np.zeros(n_frames, dt) for k, dt in stat_dtypes.items()}
     for w0 in range(start, n_frames, window):
         w1 = min(w0 + window, n_frames)
@@ -397,21 +587,26 @@ def run_grow_replay(
     scan: Callable,
     rehash: Callable,
     label: str,
+    growable_causes: Tuple[Tuple[str, Callable[[], None]], ...] = (),
+    max_grow_retries: int = MAX_GROW_RETRIES,
 ):
-    """The sharded engines' host loop: ``scan(state, start)`` maps frames
-    [start, n_frames) and returns (state, per-frame host stats, frames
-    from its first failed window on reporting ``overflowed``).  The stats
-    of the applied frames are merged; on a failed window a key-range
-    failure or, where the stats carry it, a count-packing overflow is
-    fatal (ValueError), anything else is bucket pressure: every shard
-    doubles (``rehash(state, new_local_capacity)``) and the scan replays
-    from that window.
-
-    The JAX loop's budget causes (unique, exchange, insert, batch) have no
-    counterpart: the port sizes every window from its counts."""
+    """The sharded engines' host loop (JAX's ``shard_brick.run_grow_replay``):
+    ``scan(state, start)`` maps frames [start, n_frames) and returns
+    (state, per-frame host stats, frames from its first failed window on
+    reporting ``overflowed``).  The stats of the applied frames are
+    merged; on a failed window the cause is attributed in JAX's order: a
+    key-range failure or, where the stats carry it, a count-packing
+    overflow is fatal (ValueError); then the first of ``growable_causes``
+    (``(stat key, grow)`` pairs, the engine's budgets in its order) whose
+    flag any failed frame carries calls its ``grow()``, which changes the
+    budgets the next ``scan`` reads, and the scan replays with
+    ``poisoned`` cleared and no rehash; with none, it is bucket pressure:
+    every shard doubles (``rehash(state, new_local_capacity)``) and the
+    scan replays from that window.  RuntimeError after
+    ``max_grow_retries`` scans."""
     merged: Optional[Dict[str, np.ndarray]] = None
     start = 0
-    for _ in range(MAX_GROW_RETRIES):
+    for _ in range(max_grow_retries):
         new_state, stats = scan(state, start)
         if merged is None:
             merged = {k: np.zeros(n_frames, v.dtype) for k, v in stats.items()}
@@ -432,23 +627,37 @@ def run_grow_replay(
                 f"frame >= {start}: a voxel received 2^16+ emissions in one "
                 "frame (count packing width)"
             )
-        state = rehash(new_state, new_state.local_capacity * 2)
+        for key, grow in growable_causes:
+            if key in stats and stats[key][start:].any():
+                grow()
+                state = unpoison(new_state)
+                break
+        else:
+            state = rehash(new_state, new_state.local_capacity * 2)
     raise RuntimeError(
-        f"{label} growth did not converge after {MAX_GROW_RETRIES} retries"
+        f"{label} growth did not converge after {max_grow_retries} retries"
     )
 
 
-def grow_shards(state, new_local_capacity: int, grow: Callable):
-    """Every shard grown by ``grow(shard, capacity)`` (which doubles
-    further until its buckets fit); a shard that needed more then sets
-    every shard's capacity.  Ownership depends only on the key, so no
-    entry changes shard."""
-    grown = [grow(s, new_local_capacity) for s in state.shards]
-    cap = max(g.capacity for g in grown)
-    return type(state)(tuple(
-        g if g.capacity == cap else grow(s, cap)
-        for g, s in zip(grown, state.shards)
-    ))
+def grow_insert(insert_budget):
+    """An insert budget (an int or a per-window list) doubled, as the JAX
+    engines grow it; None stays None."""
+    if isinstance(insert_budget, (list, tuple)):
+        return type(insert_budget)(2 * b for b in insert_budget)
+    return None if insert_budget is None else 2 * insert_budget
+
+
+def grow_shards(state, new_local_capacity: int, grow_once: Callable):
+    """Every shard re-built at one capacity by ``grow_once(shard,
+    capacity)`` (-> (state, () bool a bucket overflowed)), doubling it
+    until every shard fits, with one host read an attempt.  Ownership
+    depends only on the key, so no entry changes shard."""
+    while True:
+        grown = [grow_once(s, new_local_capacity) for s in state.shards]
+        dev0 = state.mesh[0]
+        if not bool(torch.stack([o.to(dev0) for _, o in grown]).any()):
+            return type(state)(tuple(g for g, _ in grown))
+        new_local_capacity *= 2
 
 
 def check_sharded_state(state, mesh, dtype: torch.dtype):
@@ -506,7 +715,7 @@ class ShardedHashState(NamedTuple):
         """Slots per shard."""
         return self.shards[0].capacity
 
-    # as on every map, table doublings are counted through ``capacity``
+    # as on every map, the stream sees table growth through ``capacity``
     capacity = local_capacity
 
     @property
@@ -590,37 +799,147 @@ def owner_block_step(
     return commit(state, results, stats, ("batch_n_unique",)), stats
 
 
-def _hash_step(state, images, transforms, tables, cfg, dtype, window):
+def owner_block_step_budgeted(
+    state: ShardedHashState,
+    frames: range,
+    *,
+    images: torch.Tensor,
+    transforms: torch.Tensor,
+    unique_budget: int,
+    tables: FanTables,
+    cfg: MapperConfig,
+    dtype: torch.dtype,
+):
+    """``owner_block_step`` at fixed widths, with no host read: each
+    shard's block is ``unique_budget`` lanes (``owner_block_budgeted``),
+    its update (``grid.hash.prepare_frame_budgeted``) stops before its
+    writes, and the ping commits on every shard or on none by the
+    device-side OR of their flags (JAX's ``_local_update``).  Returns
+    (state, the ping's stats on ``mesh[0]``)."""
+    (i,) = frames
+    blocks = frame_owner_blocks(images[i], transforms[i], state.n_shards,
+                                tables=tables, cfg=cfg, dtype=dtype)
+    pendings = []
+    for s, (shard, dev) in enumerate(zip(state.shards, state.mesh)):
+        rec, aux = owner_block_budgeted(blocks, s, unique_budget, dev)
+        pendings.append(prepare_frame_budgeted(shard, rec, aux, cfg))
+    state, wins = commit_budgeted(state, pendings)
+    return state, reduce_stats(wins, state.mesh[0], HASH_W1_REDUCE)
+
+
+class Budgets:
+    """The budgets a sharded run is at (JAX's keyword arguments, None where
+    not given), and their growth by cause.  ``budgeted``: any was given
+    (the run is fixed-width from then on, whatever grows); none: the run
+    is count-sized and only the tables grow.  Engines add their budgets'
+    defaults (``apply_kw``) and growth order (``causes``)."""
+
+    KEYS: Tuple[str, ...] = ()
+
+    def __init__(self, tables, cfg, window: int, **budgets):
+        self.tables, self.cfg, self.window = tables, cfg, window
+        self.b = {k: budgets.get(k) for k in self.KEYS}
+        self.budgeted = any(v is not None for v in self.b.values())
+
+    def unique(self) -> int:
+        """The unique budget (default: ``effective_unique_budget``)."""
+        return (self.b["unique_budget"]
+                or effective_unique_budget(self.tables, self.cfg))
+
+    def insert(self, w0: int):
+        """The window at frame ``w0``'s insert budget (a per-window list:
+        its entry, the last from there on)."""
+        return _insert_budget(self.b["insert_budget"], w0 // self.window)
+
+    def grow_unique(self, *derived: str):
+        """Double the unique budget; the ``derived`` budgets return to
+        their defaults, which scale with it."""
+        self.b["unique_budget"] = 2 * self.unique()
+        self.b.update(dict.fromkeys(derived))
+
+    def grow_insert(self):
+        self.b["insert_budget"] = grow_insert(self.b["insert_budget"])
+
+    def effective(self) -> Dict[str, Any]:
+        """What the run settled on, as JAX's ``effective`` reports it."""
+        return dict(self.b)
+
+
+class _HashBudgets(Budgets):
+    """The sharded hash engine's budgets (JAX's
+    ``map_ping_sequence_sharded``)."""
+
+    KEYS = ("unique_budget", "batch_budget", "lane_budget", "insert_budget")
+
+    def apply_kw(self, w0: int) -> Dict[str, Any]:
+        """The window at frame ``w0``'s per-shard apply budgets: the batch
+        budget (default ``default_batch_budget(window, U)``), the lane and
+        the insert budget."""
+        return dict(
+            batch_budget=(self.b["batch_budget"]
+                          or default_batch_budget(self.window, self.unique())),
+            lane_budget=self.b["lane_budget"], insert_budget=self.insert(w0))
+
+    def causes(self):
+        """JAX's growth order after the fatal causes: unique (the batch
+        budget re-derives from it), insert, batch."""
+        def batch():
+            self.b["batch_budget"] = 2 * self.apply_kw(0)["batch_budget"]
+
+        return (("unique_overflow", lambda: self.grow_unique("batch_budget")),
+                ("insert_overflow", self.grow_insert),
+                ("batch_overflow", batch))
+
+
+def _hash_step(state, images, transforms, tables, cfg, dtype, window,
+               budgets: Optional[_HashBudgets] = None):
     """The hash engine's ``step(state, frames)`` over these pings: at
     window 1 ``owner_block_step`` (each ping's records once, on
     ``mesh[0]``), else ``replicated_step`` with one
     ``apply_records_batched`` a window (every shard derives its records,
-    as in JAX's window engine)."""
+    as in JAX's window engine); their budgeted forms when ``budgets``
+    holds any (which they read at each step, so a growth shows in the
+    next scan)."""
+    budgeted = budgets is not None and budgets.budgeted
     if window == 1:
         src = state.mesh[:1]
+        kw = dict(images=on_mesh(images, src)[src[0]],
+                  transforms=on_mesh(transforms, src, dtype)[src[0]],
+                  tables=tables, cfg=cfg, dtype=dtype)
+        if not budgeted:
+            return functools.partial(owner_block_step, **kw)
+        return lambda st, frames: owner_block_step_budgeted(
+            st, frames, unique_budget=budgets.unique(), **kw)
+    kw = dict(brick_bits=0, images_dev=on_mesh(images, state.mesh),
+              T_dev=on_mesh(transforms, state.mesh, dtype),
+              tables=tables, cfg=cfg, dtype=dtype)
+    if not budgeted:
         return functools.partial(
-            owner_block_step,
-            images=on_mesh(images, src)[src[0]],
-            transforms=on_mesh(transforms, src, dtype)[src[0]],
-            tables=tables, cfg=cfg, dtype=dtype,
-        )
-    return functools.partial(
-        replicated_step,
-        apply=apply_records_batched,
-        brick_bits=0, stat_dtypes=SHARDED_HASH_STAT_DTYPES,
-        sizes=("batch_n_unique",),
-        images_dev=on_mesh(images, state.mesh),
-        T_dev=on_mesh(transforms, state.mesh, dtype),
-        tables=tables, cfg=cfg, dtype=dtype,
-    )
+            replicated_step, apply=apply_records_batched,
+            stat_dtypes=SHARDED_HASH_STAT_DTYPES, sizes=("batch_n_unique",),
+            **kw)
+    return lambda st, frames: replicated_step_budgeted(
+        st, frames, apply=apply_records_batched, apply_kw=budgets.apply_kw,
+        unique_budget=budgets.unique(), reduce=HASH_REDUCE, **kw)
+
+
+def _hash_dtypes(window: int, budgeted: bool) -> Dict[str, type]:
+    if not budgeted:
+        return SHARDED_HASH_STAT_DTYPES
+    return (SHARDED_HASH_W1_BUDGET_STAT_DTYPES if window == 1
+            else SHARDED_HASH_BUDGET_STAT_DTYPES)
 
 
 def _scan_hash(state, images, transforms, mesh, tables, cfg, dtype, window,
-               start):
+               start, **budget_kw):
     state = check_sharded_state(state, mesh, dtype)
-    step = _hash_step(state, images, transforms, tables, cfg, dtype, window)
+    budgets = _HashBudgets(tables, cfg, window, **budget_kw)
+    step = _hash_step(state, images, transforms, tables, cfg, dtype, window,
+                      budgets)
     return scan_windows(state, start, n_frames=len(images), window=window,
-                        step=step, stat_dtypes=SHARDED_HASH_STAT_DTYPES)
+                        step=step,
+                        stat_dtypes=_hash_dtypes(window, budgets.budgeted),
+                        budgeted=budgets.budgeted)
 
 
 def scan_pings_sharded(
@@ -632,6 +951,7 @@ def scan_pings_sharded(
     cfg: MapperConfig,
     dtype: torch.dtype = torch.float32,
     start: int = 0,
+    unique_budget: Optional[int] = None,
 ) -> Tuple[ShardedHashState, Dict[str, np.ndarray]]:
     """Apply pings [start, P) of ``images`` (P, R, B) with their
     ``transforms`` (P, 4, 4) sonar-to-world to the sharded map, one ping at
@@ -639,9 +959,16 @@ def scan_pings_sharded(
     (state, per-ping stats (P,) on the host: SHARDED_HASH_STAT_DTYPES;
     frames before ``start`` report zeros).  Stops at the first failed
     ping: it and every later one report ``overflowed``, and every shard of
-    the returned state is as before it, poisoned."""
+    the returned state is as before it, poisoned.
+
+    ``unique_budget`` (JAX's ``make_scan_pings_sharded``) runs every ping
+    at that many record lanes a shard with no host read and reads the
+    stats (``SHARDED_HASH_W1_BUDGET_STAT_DTYPES``) once, at the end; a
+    failed ping poisons every shard and the later pings are no-ops."""
     return _scan_hash(state, images, transforms, mesh, tables, cfg, dtype,
-                      1, start)
+                      1, start, unique_budget=unique_budget,
+                      batch_budget=None, lane_budget=None,
+                      insert_budget=None)
 
 
 def window_scan_sharded(
@@ -654,14 +981,29 @@ def window_scan_sharded(
     dtype: torch.dtype = torch.float32,
     window: int = 8,
     start: int = 0,
+    unique_budget: Optional[int] = None,
+    batch_budget: Optional[int] = None,
+    lane_budget: Optional[int] = None,
+    insert_budget=None,
 ) -> Tuple[ShardedHashState, Dict[str, np.ndarray]]:
     """``scan_pings_sharded`` a window of pings at a time: each shard
     applies its records of a window's frames with one
     ``apply_records_batched`` (each voxel's chain lives on its owner, so
     the sequential semantics hold), and a window commits on every shard or
-    on none.  ``start`` is a window boundary."""
+    on none.  ``start`` is a window boundary.
+
+    Any budget (JAX's ``make_window_scan_sharded``: ``unique_budget``
+    lanes a frame, and the PER-SHARD ``batch_budget`` (default
+    ``default_batch_budget(window, U)``), ``lane_budget`` and
+    ``insert_budget``, an int or a [cold, warm] list indexed by window)
+    runs every window at fixed widths with no host read and reads the
+    stats (``SHARDED_HASH_BUDGET_STAT_DTYPES``: global sums and the
+    per-shard maxima ``batch_n_unique_max`` / ``batch_n_need_max``) once,
+    at the end."""
     return _scan_hash(state, images, transforms, mesh, tables, cfg, dtype,
-                      window, start)
+                      window, start, unique_budget=unique_budget,
+                      batch_budget=batch_budget, lane_budget=lane_budget,
+                      insert_budget=insert_budget)
 
 
 def sharded_ping_step(
@@ -686,10 +1028,10 @@ def rehash_sharded(
     state: ShardedHashState, new_local_capacity: int
 ) -> ShardedHashState:
     """Grow every shard's table to ``new_local_capacity`` slots through
-    ``grid.hash.rehash`` (entries re-inserted in slot order; ``poisoned``
-    cleared for replay); a shard whose buckets do not fit doubles further,
-    and then every shard takes that capacity."""
-    return grow_shards(state, new_local_capacity, rehash)
+    ``grid.hash.rehash_once`` (entries re-inserted in slot order;
+    ``poisoned`` cleared for replay); while a shard's buckets do not fit,
+    every shard doubles further."""
+    return grow_shards(state, new_local_capacity, rehash_once)
 
 
 def map_ping_sequence_sharded(
@@ -704,6 +1046,12 @@ def map_ping_sequence_sharded(
     dtype: torch.dtype = torch.float32,
     window: int = 1,
     tables: Optional[FanTables] = None,
+    unique_budget: Optional[int] = None,
+    batch_budget: Optional[int] = None,
+    lane_budget: Optional[int] = None,
+    insert_budget=None,
+    max_grow_retries: int = MAX_GROW_RETRIES,
+    effective: Optional[Dict[str, Any]] = None,
 ) -> Tuple[ShardedHashState, Dict[str, np.ndarray]]:
     """Map a recorded ping sequence into a sharded hash map.
 
@@ -721,23 +1069,46 @@ def map_ping_sequence_sharded(
     ``pipeline.map_ping_sequence(backend="hash")``'s voxel by voxel, and
     each shard holds exactly the voxels it owns.  A step that would
     overflow a bucket on any shard grows every shard and replays; keys
-    outside the packable range are fatal (ValueError)."""
+    outside the packable range are fatal (ValueError).
+
+    Budgets (JAX's arguments: ``unique_budget``; at window > 1 also the
+    per-shard ``batch_budget``, ``lane_budget`` and ``insert_budget``, an
+    int or a [cold, warm] list) run every step at fixed widths with no
+    host read and one stats read a scan (the stats are then the JAX
+    engine's, ``SHARDED_HASH_BUDGET_STAT_DTYPES`` /
+    ``SHARDED_HASH_W1_BUDGET_STAT_DTYPES``); an overflow grows by JAX's
+    cause order: unique (doubled; the batch budget re-derives), insert
+    (doubled), batch (doubled), then the tables.  The map and every
+    shared stat equal the count-sized run's.  ``effective`` (a dict)
+    receives the budgets the run settled on (None where none was given or
+    grown); ``max_grow_retries`` bounds the scans (RuntimeError past it)."""
     cfg = cfg or MapperConfig()
     state = (init_sharded_hash_grid(mesh, local_capacity, dtype)
              if state is None else check_sharded_state(state, mesh, dtype))
     images, tables, T = sequence_inputs(images, positions, quaternions, cfg,
                                         tables)
     P = len(images)
+    window = min(max(window, 1), P)
+    budgets = _HashBudgets(tables, cfg, window, unique_budget=unique_budget,
+                           batch_budget=batch_budget, lane_budget=lane_budget,
+                           insert_budget=insert_budget)
     if P == 0:
         return state, {k: np.zeros(0, dt)
-                       for k, dt in SHARDED_HASH_STAT_DTYPES.items()}
-    window = min(max(window, 1), P)
+                       for k, dt in _hash_dtypes(1, budgets.budgeted).items()}
     scan = functools.partial(
         scan_windows, n_frames=P, window=window,
-        step=_hash_step(state, images, T, tables, cfg, dtype, window),
-        stat_dtypes=SHARDED_HASH_STAT_DTYPES)
-    return run_grow_replay(state=state, n_frames=P, scan=scan,
-                           rehash=rehash_sharded, label="sharded hash")
+        step=_hash_step(state, images, T, tables, cfg, dtype, window,
+                        budgets),
+        stat_dtypes=_hash_dtypes(window, budgets.budgeted),
+        budgeted=budgets.budgeted)
+    out = run_grow_replay(
+        state=state, n_frames=P, scan=scan, rehash=rehash_sharded,
+        label="sharded hash",
+        growable_causes=budgets.causes() if budgets.budgeted else (),
+        max_grow_retries=max_grow_retries)
+    if effective is not None:
+        effective.update(budgets.effective())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,18 @@ the sharded hash engine's design on bricks (parallel/shard.py): every
 shard computes every frame's records, keeps the bricks it owns, and
 applies its window with ``grid.brick.apply_brick_records_wide``, through
 the binning kernel K1 (the JAX engine applies with XLA there).  Only its
-apply half scales with the shards.
+apply half scales with the shards.  With the JAX engine's budgets
+(``unique_budget``, the per-shard ``brick_budget`` / ``lane_budget`` /
+``insert_budget``) every window runs at those widths on every shard with
+no host read, commits on every shard or on none by the device-side OR of
+their flags, and reports the JAX engine's stats, read once a scan
+(parallel/shard.py).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,21 +44,26 @@ from sonar_3d_reconstruction_tpu_torch.grid.brick import (
     BrickGridState,
     apply_brick_records_wide,
     brick_state_to_numpy,
+    default_brick_budget,
     extract_classified_brick,
     extract_occupied_brick,
     init_brick_grid,
     query_log_odds_brick,
-    rehash_bricks,
+    rehash_bricks_once,
     touched_voxels_brick,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import FanTables
 from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
+    MAX_GROW_RETRIES,
+    Budgets,
     Mesh,
+    StatReduce,
     check_sharded_state,
     grow_shards,
     make_mesh,
     on_mesh,
     replicated_step,
+    replicated_step_budgeted,
     run_grow_replay,
     scan_windows,
     sequence_inputs,
@@ -62,13 +72,31 @@ from sonar_3d_reconstruction_tpu_torch.parallel.shard import (
 from sonar_3d_reconstruction_tpu_torch.parallel.shard import (  # noqa: F401
     owner_shard_brick,
 )
-from sonar_3d_reconstruction_tpu_torch.pipeline import STAT_DTYPES
+from sonar_3d_reconstruction_tpu_torch.pipeline import (
+    BUDGET_STAT_DTYPES,
+    STAT_DTYPES,
+)
 
 # per-ping stats of the replicated-records engine: the brick backend's
 # (``num_occupied`` / ``num_free`` / ``num_candidates`` and the window
 # sizes summed over the shards) and the window sizes' largest shard
 REPLICATED_STAT_DTYPES = dict(
     STAT_DTYPES, batch_n_bricks_max=np.int64, batch_n_lanes_max=np.int64)
+# the window sizes a budgeted window reports, summed over the shards and
+# as their largest shard (JAX's psum / pmax)
+WINDOW_SIZES = ("batch_n_unique", "batch_n_bricks", "batch_n_lanes",
+                "batch_n_need")
+# the budgeted windows' stats: the JAX engine's keys
+REPLICATED_BUDGET_STAT_DTYPES = dict(
+    BUDGET_STAT_DTYPES, **{k + "_max": np.int64 for k in WINDOW_SIZES})
+# and their reduce over the shards (JAX's make_window_scan_sharded_brick)
+REPLICATED_REDUCE = StatReduce(
+    sums=("num_occupied", "num_free", "num_candidates") + WINDOW_SIZES,
+    maxima=WINDOW_SIZES,
+    ors=("unique_overflow", "batch_overflow", "insert_overflow",
+         "pack_overflow"),
+    first=("overflowed", "range_fail"),
+)
 
 
 class ShardedBrickState(NamedTuple):
@@ -90,7 +118,7 @@ class ShardedBrickState(NamedTuple):
         """Brick slots per shard."""
         return self.shards[0].capacity
 
-    # the stream counts table doublings through ``capacity`` on every map
+    # the stream sees table growth through ``capacity`` on every map
     capacity = local_capacity
 
     @property
@@ -146,11 +174,11 @@ def rehash_sharded_bricks(
     state: ShardedBrickState, new_local_capacity: int
 ) -> ShardedBrickState:
     """Grow every shard's table to ``new_local_capacity`` bricks (clears
-    ``poisoned`` for replay) through ``grid.brick.rehash_bricks``.  A
-    shard whose buckets do not fit doubles further, and then every shard
-    takes that capacity.  Ownership depends only on the brick code, so no
-    entry changes shard."""
-    return grow_shards(state, new_local_capacity, rehash_bricks)
+    ``poisoned`` for replay) through ``grid.brick.rehash_bricks_once``;
+    while a shard's buckets do not fit, every shard doubles further.
+    Ownership depends only on the brick code, so no entry changes
+    shard."""
+    return grow_shards(state, new_local_capacity, rehash_bricks_once)
 
 
 def local_brick_states(state: ShardedBrickState) -> List[BrickGridState]:
@@ -236,20 +264,53 @@ def sharded_brick_state_to_numpy(state: ShardedBrickState) -> Dict[str, np.ndarr
 # ---------------------------------------------------------------------------
 
 
-def _brick_step(state, images, transforms, tables, cfg, dtype):
+class _BrickBudgets(Budgets):
+    """The replicated-records brick engine's budgets (JAX's
+    ``map_ping_sequence_sharded_brick``)."""
+
+    KEYS = ("unique_budget", "brick_budget", "lane_budget", "insert_budget")
+
+    def apply_kw(self, w0: int) -> Dict[str, Any]:
+        """The window at frame ``w0``'s per-shard apply budgets: NB (default
+        ``default_brick_budget(window, U)``), L and the insert budget."""
+        return dict(
+            brick_budget=(self.b["brick_budget"]
+                          or default_brick_budget(self.window, self.unique())),
+            lane_budget=self.b["lane_budget"], insert_budget=self.insert(w0))
+
+    def causes(self):
+        """JAX's growth order after the fatal causes: unique (the brick
+        budget re-derives from it), insert, batch (bricks doubled; a lane
+        budget drops to the full width, which always fits)."""
+        def batch():
+            self.b["brick_budget"] = 2 * self.apply_kw(0)["brick_budget"]
+            self.b["lane_budget"] = None
+
+        return (("unique_overflow", lambda: self.grow_unique("brick_budget")),
+                ("insert_overflow", self.grow_insert),
+                ("batch_overflow", batch))
+
+
+def _brick_step(state, images, transforms, tables, cfg, dtype,
+                budgets: Optional[_BrickBudgets] = None):
     """The replicated-records engine's ``step(state, frames)`` (the JAX
     package's ``make_window_scan_sharded_brick``): each shard applies its
     records of a window's frames (two-word brick codes) with one
     ``apply_brick_records_wide`` (K1), and the window commits on every
-    shard or on none."""
-    return functools.partial(
-        replicated_step, apply=apply_brick_records_wide,
-        brick_bits=state.brick_bits, stat_dtypes=REPLICATED_STAT_DTYPES,
-        sizes=("batch_n_bricks", "batch_n_lanes"),
-        images_dev=on_mesh(images, state.mesh),
-        T_dev=on_mesh(transforms, state.mesh, dtype),
-        tables=tables, cfg=cfg, dtype=dtype,
-    )
+    shard or on none; budgeted when ``budgets`` holds any (read at each
+    step)."""
+    kw = dict(brick_bits=state.brick_bits,
+              images_dev=on_mesh(images, state.mesh),
+              T_dev=on_mesh(transforms, state.mesh, dtype),
+              tables=tables, cfg=cfg, dtype=dtype)
+    if budgets is None or not budgets.budgeted:
+        return functools.partial(
+            replicated_step, apply=apply_brick_records_wide,
+            stat_dtypes=REPLICATED_STAT_DTYPES,
+            sizes=("batch_n_bricks", "batch_n_lanes"), **kw)
+    return lambda st, frames: replicated_step_budgeted(
+        st, frames, apply=apply_brick_records_wide, apply_kw=budgets.apply_kw,
+        unique_budget=budgets.unique(), reduce=REPLICATED_REDUCE, **kw)
 
 
 def map_ping_sequence_sharded_brick(
@@ -264,6 +325,12 @@ def map_ping_sequence_sharded_brick(
     dtype: torch.dtype = torch.float32,
     window: int = 8,
     tables: Optional[FanTables] = None,
+    unique_budget: Optional[int] = None,
+    brick_budget: Optional[int] = None,
+    lane_budget: Optional[int] = None,
+    insert_budget=None,
+    max_grow_retries: int = MAX_GROW_RETRIES,
+    effective: Optional[Dict[str, Any]] = None,
 ) -> Tuple[ShardedBrickState, Dict[str, np.ndarray]]:
     """Map a recorded ping sequence into a sharded brick map with the
     replicated-records engine.
@@ -277,21 +344,43 @@ def map_ping_sequence_sharded_brick(
     shard holding exactly the bricks it owns.  A window that would
     overflow a bucket on any shard grows every shard and replays; keys
     outside the packable range and voxels with 2^16+ emissions in one
-    frame are fatal (ValueError)."""
+    frame are fatal (ValueError).
+
+    Budgets (JAX's arguments: ``unique_budget`` record lanes a frame, and
+    the PER-SHARD ``brick_budget`` (default ``default_brick_budget(window,
+    U)``), ``lane_budget`` and ``insert_budget``, an int or a [cold,
+    warm] list indexed by window) run every window at fixed widths through
+    K1 with no host read and one stats read a scan
+    (``REPLICATED_BUDGET_STAT_DTYPES``: global sums and per-shard maxima);
+    an overflow grows by JAX's cause order: unique (doubled; the brick
+    budget re-derives), insert (doubled), batch (bricks doubled, the lane
+    budget dropped), then the tables.  The map and every shared stat
+    equal the count-sized run's.  ``effective`` (a dict) receives the
+    budgets the run settled on (None where none was given or grown), as
+    JAX's does; ``max_grow_retries`` bounds the scans."""
     cfg = cfg or MapperConfig()
     state = (init_sharded_brick_grid(mesh, local_capacity, dtype)
              if state is None else check_sharded_state(state, mesh, dtype))
     images, tables, T = sequence_inputs(images, positions, quaternions, cfg,
                                         tables)
     P = len(images)
-    if P == 0:
-        return state, {k: np.zeros(0, dt)
-                       for k, dt in REPLICATED_STAT_DTYPES.items()}
     window = min(max(window, 1), P)
+    budgets = _BrickBudgets(tables, cfg, window, unique_budget=unique_budget,
+                            brick_budget=brick_budget, lane_budget=lane_budget,
+                            insert_budget=insert_budget)
+    dtypes = (REPLICATED_BUDGET_STAT_DTYPES if budgets.budgeted
+              else REPLICATED_STAT_DTYPES)
+    if P == 0:
+        return state, {k: np.zeros(0, dt) for k, dt in dtypes.items()}
     scan = functools.partial(
         scan_windows, n_frames=P, window=window,
-        step=_brick_step(state, images, T, tables, cfg, dtype),
-        stat_dtypes=REPLICATED_STAT_DTYPES)
-    return run_grow_replay(state=state, n_frames=P, scan=scan,
-                           rehash=rehash_sharded_bricks,
-                           label="sharded brick")
+        step=_brick_step(state, images, T, tables, cfg, dtype, budgets),
+        stat_dtypes=dtypes, budgeted=budgets.budgeted)
+    out = run_grow_replay(
+        state=state, n_frames=P, scan=scan, rehash=rehash_sharded_bricks,
+        label="sharded brick",
+        growable_causes=budgets.causes() if budgets.budgeted else (),
+        max_grow_retries=max_grow_retries)
+    if effective is not None:
+        effective.update(budgets.effective())
+    return out

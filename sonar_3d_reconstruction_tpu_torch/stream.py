@@ -79,9 +79,11 @@ class StreamStats:
     plus the dropped/unsynced counter the reference lacks and real
     arrival->state-committed latencies.  The fields and ``summary()`` keys
     are the JAX stream's, so a reader of ``map-bag``'s JSON line works with
-    either package.  Here ``grows`` counts table doublings; the
-    ``*_cap_recompiles`` count fan-table rebuilds after a cap grew; the port
-    keeps no sticky box-key bits, so ``box_bits_recompiles`` stays 0."""
+    either package.  Here ``grows`` counts table doublings (the sharded
+    backend: chunks that grew its budgets or tables, as the JAX stream
+    counts them); the ``*_cap_recompiles`` count fan-table rebuilds after
+    a cap grew; the port keeps no sticky box-key bits, so
+    ``box_bits_recompiles`` stays 0."""
 
     pings_in: int = 0
     poses_in: int = 0
@@ -143,7 +145,11 @@ class StreamingMapper:
     the brick (hash: batch) budget and the grow-only caps.  Its backend
     and window must match (ValueError otherwise).  Chunks then map at
     those fixed widths and grow them by cause; the plan's lane, insert
-    and vox budgets stay offline-only.
+    and vox budgets stay offline-only.  The sharded backend takes no
+    plan; it carries the frame-parallel engine's budgets from chunk to
+    chunk as the JAX stream does (``_sharded_budgets``, empty:
+    count-sized), and counts a chunk that changed them or grew the tables
+    as one ``grows``.
 
     The fan, window and free caps that size the candidate lattice grow to
     the largest the pings seen so far need, never shrinking, so the
@@ -182,6 +188,9 @@ class StreamingMapper:
         self.window = max(1, min(window, chunk_size))
         # the fixed-width sizes the chunks map at (None: count-sized)
         self._budgets: Optional[Dict[str, Any]] = None
+        # the sharded engine's budgets, carried from chunk to chunk (the
+        # JAX stream's sticky budgets; empty: count-sized)
+        self._sharded_budgets: Dict[str, Any] = {}
         self._caps = dict.fromkeys(_CAP_NEEDS, 0)
         if budgets is not None:
             if backend not in _SIZE_KEY:
@@ -320,8 +329,18 @@ class StreamingMapper:
         kw = dict(state=self.state, dtype=self.dtype, window=self.window,
                   dense_mode=self.dense_mode, tables=tables)
         if self.backend == "brick-sharded":
+            effective: Dict[str, Any] = {}
             self.state, _ = map_ping_sequence_sharded_frames(
-                images, positions, quats, self.cfg, **kw)
+                images, positions, quats, self.cfg, effective=effective,
+                **self._sharded_budgets, **kw)
+            # the budgets a chunk grew hold for the chunks after it; a
+            # chunk that changed them or the tables counts one grow, as
+            # in the JAX stream
+            effective = {k: v for k, v in effective.items() if v is not None}
+            if (effective != self._sharded_budgets
+                    or self.state.capacity != capacity):
+                self.stats.grows += 1
+                self._sharded_budgets = effective
         else:
             effective: Dict[str, Any] = {}
             self.state, _ = map_ping_sequence(
@@ -336,7 +355,9 @@ class StreamingMapper:
         # the call copied the last window's stats to the host, which
         # waited for the device: `done` is a commit time
         done = time.perf_counter()
-        self.stats.grows += (self.state.capacity // capacity).bit_length() - 1
+        if self.backend != "brick-sharded":
+            self.stats.grows += (
+                (self.state.capacity // capacity).bit_length() - 1)
         self.stats.device_time += done - t0
         self.stats.frames_mapped += n
         self.stats.chunks += 1

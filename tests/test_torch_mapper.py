@@ -373,3 +373,59 @@ def test_mapper_runs_on_the_card_unless_told():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             SonarMapper()
+
+
+def test_sharded_mapper_starts_at_its_grown_budgets(small_cfg, monkeypatch):
+    """The sharded mapper hands each call the budgets the last one settled
+    on, as the JAX mapper's sticky ``_sharded_budgets`` do: seeded with a
+    128-lane exchange budget, its first ``map_sequence`` grows it to the
+    JAX mapper's sticky budgets (and voxels); the second call starts at
+    them and grows nothing."""
+    import jax
+
+    from sonar_3d_reconstruction_tpu.parallel.shard import (
+        make_mesh as j_make_mesh,
+    )
+    from sonar_3d_reconstruction_tpu.parallel.shard_brick import (
+        local_brick_states as j_local_brick_states,
+    )
+    from sonar_3d_reconstruction_tpu_torch.models import mapper as mapper_mod
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        local_brick_states,
+    )
+
+    cfg = small_cfg
+    jm = JaxMapper(cfg, backend="brick-sharded", initial_capacity=1 << 16,
+                   dtype=jax.numpy.float64,
+                   mesh=j_make_mesh(jax.devices()[:4]))
+    tm = SonarMapper(port_cfg(cfg), backend="brick-sharded",
+                     initial_capacity=1 << 16, dtype=torch.float64,
+                     mesh=["cpu"] * 4)
+    assert tm._sharded_budgets == {}
+    jm._sharded_budgets = {"xchg_budget": 128}
+    tm._sharded_budgets = {"xchg_budget": 128}
+    images, positions, quats = survey(cfg, 8, seed=630)
+    halves = [(images[a:b], positions[a:b], quats[a:b])
+              for a, b in ((0, 4), (4, 8))]
+    tm.map_sequence(*halves[0], window=4)
+    jm.map_sequence(*halves[0], window=4)
+    sticky = {k: v for k, v in jm._sharded_budgets.items()
+              if k != "box_min_bits"}
+    assert tm._sharded_budgets == sticky
+    assert sticky["xchg_budget"] > 128
+    calls = []
+    engine = mapper_mod.map_ping_sequence_sharded_frames
+
+    def recording(*args, **kw):
+        calls.append(dict(kw))
+        return engine(*args, **kw)
+
+    monkeypatch.setattr(mapper_mod, "map_ping_sequence_sharded_frames",
+                        recording)
+    tm.map_sequence(*halves[1], window=4)
+    jm.map_sequence(*halves[1], window=4)
+    assert calls[0]["xchg_budget"] == sticky["xchg_budget"]
+    assert tm._sharded_budgets == sticky
+    for t_s, j_s in zip(local_brick_states(tm.state),
+                        j_local_brick_states(jm.state)):
+        assert_same_voxels(t_s, j_s, torch.float64)

@@ -217,3 +217,89 @@ def test_multihost_refusals():
         images[:0], positions[:0], quats[:0], cfg, backend="hash",
         state=st, device="cpu")
     assert got is st and stats == []
+
+
+# ---------------------------------------------------------------------------
+# fixed-width records and the budgeted fold
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("brick_bits", [2, 0], ids=["brick", "hash"])
+def test_fixed_width_records_match_jax(brick_bits):
+    """``records_for_segment(unique_budget=1280)``: JAX's (P, U) records,
+    lane for lane where a frame fits, ``n_unique`` (above U where a frame
+    overflowed: some do at this width) and the aux."""
+    from sonar_3d_reconstruction_tpu.parallel.multihost import (
+        records_for_segment as j_records_for_segment,
+    )
+
+    images, positions, quats = survey()
+    recs, aux = records_for_segment(
+        images, positions, quats, port_cfg(SMALL_CFG), dtype=torch.float64,
+        brick_bits=brick_bits, device="cpu", unique_budget=1280)
+    j_recs, j_aux = j_records_for_segment(
+        images, positions, quats, SMALL_CFG, unique_budget=1280,
+        dtype=jnp.float64, brick_bits=brick_bits)
+    assert recs.hi.shape == (N_PINGS, 1280) and recs.hi.dtype == np.uint32
+    assert (recs.n_unique > 1280).any() and (recs.n_unique <= 1280).any()
+    np.testing.assert_array_equal(recs.n_unique, np.asarray(j_recs.n_unique))
+    ok = recs.n_unique <= 1280
+    for got, want in zip(recs[:4], (j_recs.hi, j_recs.lo, j_recs.count,
+                                    j_recs.n_occ)):
+        np.testing.assert_array_equal(got[ok], np.asarray(want)[ok])
+    for got, want in zip(aux, j_aux):
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_budgeted_fold(backend):
+    """The JAX fold of the survey from a unique budget of 1024, which
+    overflows and doubles once: (state as NumPy, stats)."""
+    st, stats = j_multihost(*survey(), SMALL_CFG, n_hosts=3, window=3,
+                            dtype=jnp.float64, initial_capacity=1 << 16,
+                            backend=backend, unique_budget=1024)
+    return {k: np.asarray(v) for k, v in st._asdict().items()}, stats
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_budgeted_fold_matches_jax(backend):
+    """``map_ping_sequence_multihost(unique_budget=1024)``: the unique
+    overflow recomputes the records at 2048 and replays; every per-frame
+    stat (the JAX fold's keys) and every state array equal JAX's,
+    log-odds within 1e-12."""
+    want, j_stats = jax_budgeted_fold(backend)
+    st, stats = port_multihost(backend, unique_budget=1024)
+    assert len(stats) == len(j_stats) == N_PINGS
+    for got, exp in zip(stats, j_stats):
+        assert got.keys() == exp.keys()
+        for k in exp:
+            assert got[k] == np.asarray(exp[k]), k
+    for k, v in want.items():
+        got = getattr(st, k).numpy()
+        if k == "log_odds":
+            np.testing.assert_allclose(got, v, rtol=0,
+                                       atol=EXP_ULP_TOL[torch.float64])
+        else:
+            np.testing.assert_array_equal(got.astype(v.dtype), v, k)
+
+
+@pytest.mark.parametrize("budgets", [dict(unique_budget=8),
+                                     dict(batch_budget=16)],
+                         ids=["unique", "batch"])
+def test_budget_growth_replays_to_the_count_sized_map(budgets):
+    """JAX's test_multihost_unique_budget_growth_replay and
+    _batch_budget_growth_replay: a unique budget of 8 (the records
+    overflow and are recomputed) or a batch budget of 16 (the fold
+    replays) grows by cause to the count-sized map, every frame
+    applied."""
+    images, positions, quats = survey()
+    cfg = port_cfg(SMALL_CFG)
+    if "unique_budget" in budgets:
+        recs, _ = records_for_segment(images[:1], positions[:1], quats[:1],
+                                      cfg, dtype=torch.float64, device="cpu",
+                                      unique_budget=8)
+        assert int(recs.n_unique[0]) > 8
+    big, _ = port_multihost("hash")
+    grown, stats = port_multihost("hash", **budgets)
+    assert all(s is not None and not s["overflowed"] for s in stats)
+    assert_same_voxels(grown, big)

@@ -389,7 +389,7 @@ def test_port_runs_with_jax_blocked():
     budget plan from utils.autotune), the
     bench's survey and one bench run, the hash backend (pipeline, snapshot, mapper), wide
     keys, the dense backend (pipeline, mapper), the multi-host fold, the
-    sharded brick engine (engine, snapshot, mapper), every module of the port (the stream, the node and the debug
+    sharded brick engine (engine, with budgets, snapshot, mapper), every module of the port (the stream, the node and the debug
     overlay included), a stream over the same pings, the CLI's
     selftest, the port's golden oracle over the same pings, and one
     trial of the port's golden fuzz (scripts/torch_fuzz_golden.py)
@@ -476,6 +476,13 @@ def test_port_runs_with_jax_blocked():
             images, pos, q, cfg, mesh=["cpu"] * 3, window=2)
         assert int(s_st.used.sum()) == int(st.used)
         assert (s_stats["num_occupied"] == stats["num_occupied"]).all()
+        b_eff = {}
+        bs_st, bs_stats = map_ping_sequence_sharded_frames(
+            images, pos, q, cfg, mesh=["cpu"] * 3, window=2,
+            unique_budget=256, xchg_budget=64, effective=b_eff)
+        assert int(bs_st.used.sum()) == int(st.used)
+        assert (bs_stats["num_free"] == stats["num_free"]).all()
+        assert b_eff["unique_budget"] >= 256
         save_map(snap, s_st, cfg)
         l_st, _ = load_map_sharded_brick(snap, mesh=["cpu"] * 2)
         assert int(l_st.used.sum()) == int(st.used)

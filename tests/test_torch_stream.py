@@ -361,12 +361,15 @@ def test_unported_backends_are_refused(small_cfg, backend, refusal):
         StreamingMapper(port_cfg(small_cfg), backend=backend, device="cpu")
 
 
-def test_sharded_stream_matches_jax_stream(survey, small_cfg):
+def test_sharded_stream_matches_jax_stream(survey, small_cfg, monkeypatch):
     """backend="brick-sharded" over four shards, chunks and windows of 3,
     from 8 bricks a shard: the JAX sharded stream's counters, each shard's
     voxels and the published clouds (JAX: four virtual devices); the same
-    map as the single-card stream; table doublings counted."""
+    map as the single-card stream; each chunk that grew the tables counted
+    as one grow, as the JAX stream counts them."""
     import jax
+
+    from sonar_3d_reconstruction_tpu_torch import stream as stream_mod
 
     from sonar_3d_reconstruction_tpu.parallel.shard import (
         make_mesh as j_make_mesh,
@@ -379,6 +382,16 @@ def test_sharded_stream_matches_jax_stream(survey, small_cfg):
         local_brick_states,
     )
 
+    grown_chunks = []
+    engine = stream_mod.map_ping_sequence_sharded_frames
+
+    def counting(*args, state, **kw):
+        out = engine(*args, state=state, **kw)
+        grown_chunks.append(out[0].local_capacity != state.local_capacity)
+        return out
+
+    monkeypatch.setattr(stream_mod, "map_ping_sequence_sharded_frames",
+                        counting)
     published = []
     sm = StreamingMapper(
         port_cfg(small_cfg), StreamConfig(publish_rate_hz=2.0),
@@ -395,8 +408,8 @@ def test_sharded_stream_matches_jax_stream(survey, small_cfg):
                      mesh=j_make_mesh(jax.devices()[:4]))
     j_sm.run_bag(survey["path"])
     assert_same_counters(sm.stats, j_sm.stats)
-    assert sm.stats.grows == (sm.state.local_capacity // 128).bit_length() - 1
-    assert sm.stats.grows > 0
+    assert sm.stats.grows == sum(grown_chunks)
+    assert sm.stats.grows > 0 and sm.state.local_capacity > 128
     for t_s, j_s in zip(local_brick_states(sm.state),
                         j_local_brick_states(j_sm.state)):
         assert_same_voxels(t_s, j_s, EXP_ULP_TOL[torch.float64])
@@ -453,3 +466,41 @@ def test_stream_needs_the_card_unless_told(small_cfg):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             StreamingMapper(port_cfg(small_cfg))
+
+
+def test_sharded_stream_carries_budgets_and_counts_grows_as_jax(survey):
+    """The sharded stream seeded with a 128-lane exchange budget (the JAX
+    stream's sticky ``_sharded_budgets``): the chunk that grows it counts
+    one grow, later chunks start at the grown budgets; ``grows``, the
+    sticky budgets and each shard's voxels equal the JAX stream's."""
+    import jax
+
+    from sonar_3d_reconstruction_tpu.parallel.shard import (
+        make_mesh as j_make_mesh,
+    )
+    from sonar_3d_reconstruction_tpu.parallel.shard_brick import (
+        local_brick_states as j_local_brick_states,
+    )
+    from sonar_3d_reconstruction_tpu_torch.parallel.shard_brick import (
+        local_brick_states,
+    )
+
+    sm = StreamingMapper(port_cfg(SMALL_CFG), dtype=torch.float64,
+                         chunk_size=3, window=3, initial_capacity=1 << 17,
+                         backend="brick-sharded", mesh=["cpu"] * 4)
+    j_sm = JaxStream(SMALL_CFG, JStreamConfig(), dtype=jnp.float64,
+                     backend="brick-sharded", chunk_size=3, window=3,
+                     initial_capacity=1 << 17,
+                     mesh=j_make_mesh(jax.devices()[:4]))
+    sm._sharded_budgets = {"xchg_budget": 128}
+    j_sm._sharded_budgets = {"xchg_budget": 128}
+    sm.run_bag(survey["path"])
+    j_sm.run_bag(survey["path"])
+    assert sm.stats.grows == j_sm.stats.grows >= 1
+    assert sm.stats.chunks == j_sm.stats.chunks > sm.stats.grows
+    assert sm._sharded_budgets == {
+        k: v for k, v in j_sm._sharded_budgets.items() if k != "box_min_bits"}
+    assert sm._sharded_budgets["xchg_budget"] > 128
+    for t_s, j_s in zip(local_brick_states(sm.state),
+                        j_local_brick_states(j_sm.state)):
+        assert_same_voxels(t_s, j_s, EXP_ULP_TOL[torch.float64])
