@@ -305,6 +305,7 @@ K2_SMALL_TABLES = [(64, 3000, 1000), (4, 20000, 3000), (1, 20000, 400)]
 # at the card's 67 TFLOP/s float32 peak take a fraction of the bytes' time.
 HBM_BYTES_PER_S = 3.35e12
 PROFILE_TRIES = 5     # profiler runs before a kernel with no record fails
+SPIN_CYCLES = 200_000_000  # ~0.1 s of device spin ahead of event-timed calls
 ENTRY_PINGS = 32      # bench pings timed one by one through the mapper
 QUERY_POINTS = 100000  # point queries of the survey map
 CLI_PINGS = 64        # pings of the CLI's synthetic bag
@@ -353,12 +354,13 @@ def _time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
-def _device_ms(fn, kernel_name, reps=20, flush=None):
+def _device_ms(fn, kernel_name, reps=20):
     """Device time per launch of the kernels named ``kernel_name`` while
-    ``fn`` runs ``reps`` times, from torch.profiler, with ``flush`` (a
-    tensor larger than L2) rewritten before each call when given.  The
-    profiler now and then records no launch in a run: it profiles again,
-    and raises after PROFILE_TRIES runs without one."""
+    ``fn`` runs ``reps`` times, from torch.profiler.  The profiler records
+    fewer kernels than were launched, more so the longer the process has
+    profiled, and late in the script it may record none: it profiles
+    again, and after PROFILE_TRIES runs without one it times the calls
+    with CUDA events instead (``_event_ms``) and says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,8 +369,6 @@ def _device_ms(fn, kernel_name, reps=20, flush=None):
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                if flush is not None:
-                    flush.add_(1)
                 fn()
             torch.cuda.synchronize()
         total, count = 0.0, 0
@@ -379,8 +379,31 @@ def _device_ms(fn, kernel_name, reps=20, flush=None):
                 count += e.count
         if count:
             return total / count / 1e3
-    raise RuntimeError(f"torch.profiler recorded no {kernel_name} launch in "
-                       f"{PROFILE_TRIES} runs")
+    ms = _event_ms(fn, reps)
+    print(f"  torch.profiler recorded no {kernel_name} launch in "
+          f"{PROFILE_TRIES} runs: timed with CUDA events instead, "
+          f"{ms:.4f} ms", flush=True)
+    return ms
+
+
+def _event_ms(fn, reps=20):
+    """Device ms of one call of ``fn``: two CUDA events around ``reps``
+    calls queued behind a spin kernel, so that the device runs them back
+    to back and not at the host's pace.  Unlike the profiler's time it
+    holds the gaps between the launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _profile_calls(fn, reps=10):
