@@ -218,7 +218,14 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    BATCH_F64_PINGS float64 pings at records_batch 16 and window_group 4
    in windows of 16 and of 4, card against CPU (stats and every state
    array bit-equal); ``python -m sonar_3d_reconstruction_tpu_torch bench``
-   at its defaults in a subprocess, its JSON line parsed and printed.
+   in subprocesses (BENCH_RUNS), each JSON line parsed and printed: at
+   its defaults it hits ``bench_plan.json``'s entry of the survey's key
+   (budgets equal to the entry, 16 K1 launches, 175,438 updates a ping),
+   with ``BENCH_DENSE_MODE=pallas-raw`` it discovers its budgets (16
+   K1-raw launches), and ``BENCH_COUNT_SIZED=1`` counts the same updates
+   and unique updates; ``scripts/torch_profile_bench.py`` at each
+   records_batch of TRACE_BATCHES (top kernels, launches a ping, syncs a
+   run, busy share), its lines printed.
 13. the port held to its golden oracle (``sonar_3d_reconstruction_tpu_
    torch.golden``, pure NumPy on the host) on the card, through
    ``scripts/torch_fuzz_golden.py``:
@@ -3624,7 +3631,7 @@ def phase_owner_blocks_raw_poses(dev, smi, main_voxels, main_stats):
 BATCH_PINGS = 256     # phase 12: phase 2's survey
 RECORDS_BATCHES = (1, 4, 16)   # phase 12: records_batch settings
 WINDOW_GROUPS = (1, 4)         # phase 12: window_group settings
-BATCH_RUNS = 5        # phase 12: alternating timed runs of each setting
+BATCH_RUNS = 3        # phase 12: alternating timed runs of each setting
 BATCH_F64_PINGS = 16  # phase 12: float64 pings card vs CPU
 SORT_REPS = 20        # phase 12: sorts timed a form
 
@@ -3749,26 +3756,112 @@ def _batch_float64(dev, smi, images, positions, quats, cfg):
     return facts
 
 
-def _bench_cli(smi):
-    """``python -m sonar_3d_reconstruction_tpu_torch bench`` at its defaults
-    in a subprocess: exit 0 and one JSON line, parsed and returned."""
+# phase 12: the bench command's runs (label, environment beside the
+# defaults) and the records batches its trace script runs at
+BENCH_RUNS = (("plan", {}),
+              ("pallas-raw", {"BENCH_DENSE_MODE": "pallas-raw",
+                              "BENCH_LATENCY": "0"}),
+              ("count-sized", {"BENCH_COUNT_SIZED": "1",
+                               "BENCH_LATENCY": "0"}))
+TRACE_BATCHES = (1, 16)
+# the budgets a bench_plan.json entry gives the bench's brick scan
+BENCH_BUDGETS = ("unique_budget", "brick_budget", "lane_budget",
+                 "insert_budget", "vox_budget", "dedup_lane_budget")
+
+
+def _last_json(argv, env, what, timeout=600):
+    """Run ``argv`` from the checkout's root with ``env`` beside this
+    process's environment: exit 0 and a JSON object on the last line of
+    its output, parsed and returned with the lines and the seconds."""
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "sonar_3d_reconstruction_tpu_torch", "bench"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
-    )
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout, env=dict(os.environ, **env))
     lines = proc.stdout.splitlines()
-    if proc.returncode != 0 or len(lines) != 1:
-        raise AssertionError(f"bench exited {proc.returncode} with "
-                             f"{len(lines)} lines: {proc.stdout[-2000:]}"
-                             f"{proc.stderr[-2000:]}")
-    got = json.loads(lines[0])
-    if "error" in got or got["value"] <= 0 or not got["detail"]["k1_launches"]:
-        raise AssertionError(f"bench: {lines[0]}")
-    print(f"phase 12 bench ({time.perf_counter() - t0:.1f} s in a "
-          f"subprocess) [{smi}]:", flush=True)
-    print(lines[0], flush=True)
-    return got
+    try:
+        got = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        got = None
+    if proc.returncode != 0 or not isinstance(got, dict) or "error" in got:
+        raise AssertionError(f"{what} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return got, lines, time.perf_counter() - t0
+
+
+def _bench_cli(smi, images, cfg):
+    """``python -m sonar_3d_reconstruction_tpu_torch bench`` in one
+    subprocess for each run of BENCH_RUNS, and
+    ``scripts/torch_profile_bench.py`` at each records_batch of
+    TRACE_BATCHES: the default run hits the committed plan of the survey's
+    key (budgets equal to the entry, 16 K1 launches), the raw run
+    discovers its budgets (16 K1-raw launches), the count-sized run counts
+    the same updates, each trace hits the plan; each JSON line printed.
+    Returns ({K1 form: {path: launches}}, facts)."""
+    from sonar_3d_reconstruction_tpu_torch.bench import (
+        PLAN_PATH,
+        _plan_key,
+        survey_caps,
+    )
+
+    key = _plan_key(cfg, len(images), 16, "brick", "pallas-tb16",
+                    survey_caps(images, cfg), 1 << 16, 0)
+    with open(PLAN_PATH) as f:
+        plan = json.load(f)[key]
+    facts, launches = {}, {"bin_apply": {}, "bin_apply_raw": {}}
+    for label, env in BENCH_RUNS:
+        got, lines, secs = _last_json(
+            [sys.executable, "-m", "sonar_3d_reconstruction_tpu_torch",
+             "bench"], env, f"bench ({label})")
+        if len(lines) != 1 or got["value"] <= 0:
+            raise AssertionError(f"bench ({label}): {lines}")
+        d = got["detail"]
+        print(f"phase 12 bench, {label} ({secs:.1f} s in a subprocess"
+              f"{', ' if env else ''}"
+              + " ".join(f"{k}={v}" for k, v in env.items())
+              + f") [{smi}]:", flush=True)
+        print(lines[0], flush=True)
+        facts[label] = dict(got, process_s=secs)
+        raw = d["dense_mode"] == "pallas-raw"
+        n, other = ((d["k1_raw_launches"], d["k1_launches"]) if raw
+                    else (d["k1_launches"], d["k1_raw_launches"]))
+        if n != len(images) // 16 or other:
+            raise AssertionError(f"bench ({label}): {n} launches of its K1 "
+                                 f"form, {other} of the other")
+        launches["bin_apply_raw" if raw else "bin_apply"][
+            f"bench {label}"] = n
+    want = facts["plan"]["detail"]
+    differ = {k: (want[k], plan[k]) for k in BENCH_BUDGETS
+              if want[k] != plan[k]}
+    if (want["budget_plan"] != "hit" or want["plan_key"] != key or differ
+            or want["capacity_bricks"] != plan["capacity"]
+            or want["dense_mode"] != "pallas-tb16"
+            or want["updates_per_ping"] != 175438.0):
+        raise AssertionError(f"bench at its defaults: plan {key} "
+                             f"{want['budget_plan']}, budgets differ {differ}"
+                             f": {want}")
+    if facts["pallas-raw"]["detail"]["budget_plan"] != "discovered":
+        raise AssertionError("bench pallas-raw: no plan should match")
+    for label in ("pallas-raw", "count-sized"):
+        d = facts[label]["detail"]
+        for k in ("updates_per_ping", "unique_voxel_updates_per_ping"):
+            if d[k] != want[k]:
+                raise AssertionError(f"bench {label}: {k} {d[k]} against "
+                                     f"{want[k]} with the plan")
+    for rb in TRACE_BATCHES:
+        got, lines, secs = _last_json(
+            [sys.executable, os.path.join("scripts", "torch_profile_bench.py"),
+             "--out", os.path.join("build", "chip_smoke", f"trace_rb{rb}")],
+            {"BENCH_RECORDS_BATCH": str(rb)}, f"trace rb={rb}")
+        if (got["k1_launches"] != len(images) // 16
+                or got["budget_plan"] != "hit"):
+            raise AssertionError(f"trace rb={rb}: {got['k1_launches']} K1 "
+                                 f"launches, plan {got['budget_plan']}")
+        print(f"phase 12 bench trace, records_batch {rb} ({secs:.1f} s in a "
+              f"subprocess) [{smi}]:", flush=True)
+        for line in lines:
+            print(line, flush=True)
+        facts[f"trace_rb{rb}"] = dict(got, process_s=secs)
+        launches["bin_apply"][f"bench trace rb={rb}"] = got["k1_launches"]
+    return launches, facts
 
 
 def phase_records_batch(dev, smi, main_np, main_stats, raw_stats):
@@ -3868,7 +3961,9 @@ def phase_records_batch(dev, smi, main_np, main_stats, raw_stats):
           + ", ".join(f"{k} {v:.4f}" for k, v in sort_ms.items())
           + f" [{smi}]", flush=True)
     facts["float64"] = _batch_float64(dev, smi, images, positions, quats, cfg)
-    facts["bench"] = _bench_cli(smi)
+    bench_launches, facts["bench"] = _bench_cli(smi, images, cfg)
+    for form, by_path in bench_launches.items():
+        launches[form].update(by_path)
     facts["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 12 records batches and window groups: "
           f"{facts['phase_s']:.1f} s (profiled runs {profile_s:.1f} s, "
@@ -4209,55 +4304,27 @@ def phase_golden(dev, smi):
 PLAN_PINGS = 256       # phase 14: phase 2's survey
 PLAN_WINDOW = 16
 PLAN_BATCHES = (1, 16)  # 14b: records_batch settings
-PLAN_RUNS = 5          # 14b: alternating timed runs of each setting
+PLAN_RUNS = 3          # 14b: alternating timed runs of each setting
 # 14a: the fields of a bench_plan.json entry, all held to the card's plan
 PLAN_FIELDS = ("capacity", "unique_budget", "brick_budget", "lane_budget",
                "insert_budget", "vox_budget", "dedup_lane_budget",
                "safe_unique_budget", "safe_brick_budget")
 
 
-def bench_plan_key(cfg, n_pings, window, backend, dense_mode, caps, capacity,
-                   seed):
-    """The key of a ``bench_plan.json`` entry: a copy of the root
-    ``bench.py``'s ``_plan_key`` (bench.py:200-221), which this script
-    reads as data and never imports."""
-    import hashlib
-
-    raw = json.dumps(
-        {
-            "backend": backend,
-            "n_pings": n_pings,
-            "window": window,
-            "dense_mode": dense_mode,
-            "seed": seed,
-            "caps": list(caps),
-            "capacity": capacity,
-            "image": [cfg.image_height, cfg.image_width],
-            "res": cfg.voxel_resolution,
-            "range": [cfg.min_range, cfg.max_range],
-            "fov": cfg.horizontal_fov,
-            "thr": cfg.intensity_threshold,
-        },
-        sort_keys=True,
-    )
-    return hashlib.md5(raw.encode()).hexdigest()[:16]
-
-
 def bench_plan_entry(cfg, images):
     """``bench_plan.json``'s entry for the JAX bench's default capture key
-    of these images: brick, ``"scalar"``, window PLAN_WINDOW, the caps
-    the port's ``required_*_cap`` give, capacity 1 << 16, seed 0."""
-    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
-        required_fan_cap,
-        required_free_cap,
-        required_window_cap,
+    of these images before its Pallas default: brick, ``"scalar"``, window
+    PLAN_WINDOW, the survey's caps, capacity 1 << 16, seed 0 (the key
+    from the port bench's copy of the root bench's ``_plan_key``)."""
+    from sonar_3d_reconstruction_tpu_torch.bench import (
+        PLAN_PATH,
+        _plan_key,
+        survey_caps,
     )
 
-    caps = tuple(need(images, cfg, cfg.image_height) for need in (
-        required_fan_cap, required_window_cap, required_free_cap))
-    key = bench_plan_key(cfg, len(images), PLAN_WINDOW, "brick", "scalar",
-                         caps, 1 << 16, 0)
-    with open(os.path.join(ROOT, "bench_plan.json")) as f:
+    key = _plan_key(cfg, len(images), PLAN_WINDOW, "brick", "scalar",
+                    survey_caps(images, cfg), 1 << 16, 0)
+    with open(PLAN_PATH) as f:
         return key, json.load(f)[key]
 
 
@@ -4605,7 +4672,7 @@ SB_PINGS = 256            # 15a, 15c: phase 2's survey
 SB_SETTINGS = ((2, "pallas"), (4, "pallas"), (4, "pallas-raw"))  # 15a
 SB_S = 4                  # 15b-15d: shards
 SB_CAPACITY = 1 << 16     # bricks (hash: slots / 4) a shard: no run grows
-SB_RUNS = 5               # 15a: alternating timed runs of each run
+SB_RUNS = 3               # 15a: alternating timed runs of each run
 SB_SHORT_RUNS = 3         # 15b, 15c: alternating timed runs
 SB_REPL_PINGS = 64        # 15b, 15d: the survey's first pings
 SB_W1_PINGS = 32          # 15b: the sharded hash engine at window 1

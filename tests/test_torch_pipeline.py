@@ -393,7 +393,8 @@ def test_port_runs_with_jax_blocked():
     overlay included), a stream over the same pings, the CLI's
     selftest, the port's golden oracle over the same pings, and one
     trial of the port's golden fuzz (scripts/torch_fuzz_golden.py)
-    through every engine."""
+    through every engine, and the bench's trace
+    (scripts/torch_profile_bench.py)."""
     code = textwrap.dedent("""
         import sys
         for name in list(sys.modules):
@@ -541,6 +542,9 @@ def test_port_runs_with_jax_blocked():
             2016, device="cpu", dtype=torch.float64)
         assert trial.failure is None, trial.message
         assert len(trial.engines) == len(torch_fuzz_golden.ENGINES)
+        import torch_profile_bench
+        assert torch_profile_bench.main(
+            ["--device", "cpu", "--out", tempfile.mkdtemp()]) == 0
         loaded = [m for m in sys.modules if m.split(".")[0] in
                   ("jax", "jaxlib", "sonar_3d_reconstruction_tpu", "bench")
                   and sys.modules[m] is not None]
