@@ -44,6 +44,16 @@ flag with its cause; the host then grows the cause's budget (a stale
 plan is first dropped whole for its ``safe_*`` budgets) or the table and
 replays, as the JAX package does.  Budgets are shapes, never semantics:
 the map and every per-ping stat equal the run without them.
+
+While a ``torch.profiler`` profile records, ``map_ping_sequence`` opens
+spans (``utils.profiling.span``) that land in its trace:
+``sonar3d.upload`` (the images and poses to the device) and, on the
+brick and hash backends, ``sonar3d.scan`` (each scan of the growth loop:
+a run's scans less one are its replays).  ``scan_pings_brick`` opens
+``sonar3d.window`` around each group of windows, holding one
+``sonar3d.records`` (the group's records) and one ``sonar3d.apply`` a
+window; the hash and dense loops and the sharded engines open none.
+With no profiler a span costs one flag test.
 """
 
 from __future__ import annotations
@@ -96,6 +106,7 @@ from sonar_3d_reconstruction_tpu_torch.ops.records import (
     frame_records,
     stack_frame_records,
 )
+from sonar_3d_reconstruction_tpu_torch.utils.profiling import span
 
 # per-ping stats of each backend and their host dtypes
 STAT_DTYPES = {
@@ -314,31 +325,36 @@ def scan_pings_brick(
     stats = {k: np.zeros(P, dt) for k, dt in STAT_DTYPES.items()}
     wins = [(w0, min(w0 + window, P)) for w0 in range(start, P, window)]
     for g in range(0, len(wins), group):
-        todo = wins[g:g + group]
-        g0 = todo[0][0]
-        # unique records are cut to the group's widest frame (one sync);
-        # raw candidates keep their full width: a cut would drop some
-        recs, auxs = stack_frame_records([
-            out for w0, w1 in todo for out in _window_records(
-                images, transforms, range(w0, w1),
-                None if boxes is None else box_mins[w0 // window],
-                tables=tables, cfg=cfg, dtype=dtype, box_bits=box_bits,
-                brick_bits=state.brick_bits, raw=raw,
-                records_batch=records_batch,
-            )
-        ], cut=not raw)
-        for w0, w1 in todo:
-            rec = type(recs)(*(x[w0 - g0:w1 - g0] for x in recs))
-            aux = FrameAux(*(x[w0 - g0:w1 - g0] for x in auxs))
-            if boxes is None:
-                state, win = apply_brick_records_wide(state, rec, aux, cfg)
-            else:
-                state, win = apply_brick_records_compact(
-                    state, rec, aux, cfg, box_mins[w0 // window], box_bits,
-                    dense_mode=dense_mode,
-                )
-            if _record_stats(stats, win, w0, w1):
-                return state, stats
+        with span("sonar3d.window"):
+            todo = wins[g:g + group]
+            g0 = todo[0][0]
+            # unique records are cut to the group's widest frame (one
+            # sync); raw candidates keep their full width: a cut would
+            # drop some
+            with span("sonar3d.records"):
+                recs, auxs = stack_frame_records([
+                    out for w0, w1 in todo for out in _window_records(
+                        images, transforms, range(w0, w1),
+                        None if boxes is None else box_mins[w0 // window],
+                        tables=tables, cfg=cfg, dtype=dtype,
+                        box_bits=box_bits, brick_bits=state.brick_bits,
+                        raw=raw, records_batch=records_batch,
+                    )
+                ], cut=not raw)
+            for w0, w1 in todo:
+                rec = type(recs)(*(x[w0 - g0:w1 - g0] for x in recs))
+                aux = FrameAux(*(x[w0 - g0:w1 - g0] for x in auxs))
+                with span("sonar3d.apply"):
+                    if boxes is None:
+                        state, win = apply_brick_records_wide(state, rec,
+                                                              aux, cfg)
+                    else:
+                        state, win = apply_brick_records_compact(
+                            state, rec, aux, cfg, box_mins[w0 // window],
+                            box_bits, dense_mode=dense_mode,
+                        )
+                if _record_stats(stats, win, w0, w1):
+                    return state, stats
     return state, stats
 
 
@@ -362,31 +378,37 @@ def _scan_brick_budgeted(
     wins = [(w0, min(w0 + window, P)) for w0 in range(start, P, window)]
     done = []
     for g in range(0, len(wins), group):
-        todo = wins[g:g + group]
-        g0 = todo[0][0]
-        recs, auxs = stack_frame_records([
-            out for w0, w1 in todo for out in _window_records(
-                images, transforms, range(w0, w1),
-                None if box_dev is None else box_dev[w0 // window],
-                tables=tables, cfg=cfg, dtype=dtype, box_bits=box_bits,
-                brick_bits=state.brick_bits, raw=raw,
-                records_batch=records_batch, unique_budget=unique_budget,
-                dedup_lane_budget=dedup_lane_budget,
-            )
-        ], cut=False)
-        for w0, w1 in todo:
-            rec = type(recs)(*(x[w0 - g0:w1 - g0] for x in recs))
-            aux = FrameAux(*(x[w0 - g0:w1 - g0] for x in auxs))
-            ib = _insert_budget(insert_budget, w0 // window)
-            if box_dev is None:
-                state, win = apply_brick_records_wide(
-                    state, rec, aux, cfg, insert_budget=ib, **budgets)
-            else:
-                state, win = apply_brick_records_compact(
-                    state, rec, aux, cfg, box_dev[w0 // window], box_bits,
-                    dense_mode=dense_mode, insert_budget=ib, **budgets,
-                )
-            done.append(win)
+        with span("sonar3d.window"):
+            todo = wins[g:g + group]
+            g0 = todo[0][0]
+            with span("sonar3d.records"):
+                recs, auxs = stack_frame_records([
+                    out for w0, w1 in todo for out in _window_records(
+                        images, transforms, range(w0, w1),
+                        None if box_dev is None else box_dev[w0 // window],
+                        tables=tables, cfg=cfg, dtype=dtype,
+                        box_bits=box_bits, brick_bits=state.brick_bits,
+                        raw=raw, records_batch=records_batch,
+                        unique_budget=unique_budget,
+                        dedup_lane_budget=dedup_lane_budget,
+                    )
+                ], cut=False)
+            for w0, w1 in todo:
+                rec = type(recs)(*(x[w0 - g0:w1 - g0] for x in recs))
+                aux = FrameAux(*(x[w0 - g0:w1 - g0] for x in auxs))
+                ib = _insert_budget(insert_budget, w0 // window)
+                with span("sonar3d.apply"):
+                    if box_dev is None:
+                        state, win = apply_brick_records_wide(
+                            state, rec, aux, cfg, insert_budget=ib,
+                            **budgets)
+                    else:
+                        state, win = apply_brick_records_compact(
+                            state, rec, aux, cfg, box_dev[w0 // window],
+                            box_bits, dense_mode=dense_mode,
+                            insert_budget=ib, **budgets,
+                        )
+                done.append(win)
     return state, _read_stats(done, BUDGET_STAT_DTYPES, P, start)
 
 
@@ -634,8 +656,9 @@ def map_ping_sequence(
     tables = tables_for_images(images, cfg, tables)
     T = batched_sonar_to_world(positions, quaternions, cfg)
     window = min(max(window, 1), P)
-    images_dev = to_device(images, device)
-    T_dev = torch.as_tensor(T, device=device).to(dtype)
+    with span("sonar3d.upload"):
+        images_dev = to_device(images, device)
+        T_dev = torch.as_tensor(T, device=device).to(dtype)
     if backend == "dense":
         return scan_pings_dense(state, images_dev, T_dev, tables=tables,
                                 spec=dense_spec, cfg=cfg, dtype=dtype)
@@ -658,8 +681,9 @@ def map_ping_sequence(
     merged = None
     start = 0
     for _ in range(max_grow_retries):
-        new_state, stats = scan(state, images_dev, T_dev, start, **kw,
-                                **grower.scan_kwargs())
+        with span("sonar3d.scan"):
+            new_state, stats = scan(state, images_dev, T_dev, start, **kw,
+                                    **grower.scan_kwargs())
         if merged is None:
             merged = {k: np.zeros(P, v.dtype) for k, v in stats.items()}
         over = stats["overflowed"]

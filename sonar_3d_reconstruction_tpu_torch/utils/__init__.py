@@ -1,8 +1,7 @@
-"""Utilities: profiling/tracing and structured per-ping statistics."""
+"""Utilities: profiling (a device trace of a block, the program's spans)
+and budget plans."""
 
 from sonar_3d_reconstruction_tpu_torch.utils.profiling import (  # noqa: F401
-    PingStats,
-    StatsAggregator,
     device_trace,
-    timed,
+    span,
 )

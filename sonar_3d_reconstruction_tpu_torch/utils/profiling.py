@@ -1,27 +1,27 @@
-"""Profiling and structured per-ping statistics (PyTorch port of
-``sonar_3d_reconstruction_tpu.utils.profiling``).
+"""Profiling: a device trace of a block, and the program's own spans.
 
-The reference's observability is hand-rolled wall-clock deltas and per-voxel
-update-count histograms printed every 10 frames (reference
-scripts/3d_mapper.py:500, 569-585).  This module keeps the same stats-dict
-fields for drop-in comparability and adds:
+The reference's observability is hand-rolled wall-clock deltas printed
+every 10 frames (reference scripts/3d_mapper.py:500, 569-585).  Here:
 
   * ``device_trace`` — a ``torch.profiler`` trace of the enclosed block
     (host ops and, where a card is visible, its kernels and copies),
     written as a Chrome trace that Perfetto opens;
-  * ``timed`` — lightweight wall-clock section timer;
-  * ``StatsAggregator`` — rolling per-ping stats with the reference's
-    every-N-frames reporting cadence.
+  * ``span`` — a named range of the program (``sonar3d.*`` in
+    ``pipeline.map_ping_sequence``) that lands in whatever
+    ``torch.profiler`` trace is being recorded, beside the kernels and
+    copies it launches, and costs one flag test when none is.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import ContextManager, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# what ``span`` returns while no profiler runs: one object, never built
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -40,63 +40,13 @@ def device_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         yield prof
 
 
-@contextlib.contextmanager
-def timed(sink: Dict[str, float], key: str) -> Iterator[None]:
-    """Accumulate the wall-clock time of the enclosed block into sink[key]."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        sink[key] = sink.get(key, 0.0) + (time.perf_counter() - t0)
-
-
-@dataclass
-class PingStats:
-    """One ping's stats — the reference process_sonar_image return fields
-    (3d_mapper.py:587-595)."""
-
-    frame_count: int
-    num_occupied: int
-    num_free: int
-    num_voxels: int
-    processing_time: float
-
-
-@dataclass
-class StatsAggregator:
-    """Rolling aggregation with periodic reporting (reference logs every 10
-    frames, node:345-357)."""
-
-    report_every: int = 10
-    report_fn: Optional[Callable[[str], None]] = None
-    history: List[PingStats] = field(default_factory=list)
-    total_time: float = 0.0
-
-    def add(self, s: PingStats) -> None:
-        self.history.append(s)
-        self.total_time += s.processing_time
-        if self.report_fn and s.frame_count % self.report_every == 0:
-            self.report_fn(self.format_report(s))
-
-    def format_report(self, s: PingStats) -> str:
-        avg = self.total_time / max(1, len(self.history))
-        return (
-            f"frame {s.frame_count}: occupied={s.num_occupied} "
-            f"free={s.num_free} voxels={s.num_voxels} "
-            f"({s.processing_time * 1e3:.1f} ms, avg {avg * 1e3:.1f} ms, "
-            f"{1.0 / avg if avg > 0 else 0.0:.1f} fps)"
-        )
-
-    def summary(self) -> Dict[str, float]:
-        n = len(self.history)
-        if n == 0:
-            return {"frames": 0}
-        return {
-            "frames": n,
-            "avg_processing_time": self.total_time / n,
-            "fps": n / self.total_time if self.total_time > 0 else 0.0,
-            "last_num_voxels": self.history[-1].num_voxels,
-            "p50_processing_time": sorted(
-                s.processing_time for s in self.history
-            )[n // 2],
-        }
+def span(name: str) -> ContextManager:
+    """A ``record_function(name)`` range while a ``torch.profiler`` profile
+    is recording, else the shared null context.  In the trace the range
+    is a ``user_annotation`` event on the calling thread, and every CUDA
+    call made inside it (a launch, a copy, a set) falls within it, so a
+    reader can charge each device operation to the span that launched it
+    through the operation's ``correlation`` id."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
