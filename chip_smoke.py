@@ -271,6 +271,18 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    and hash; (d) a quarter of each snug budget and SB_XCHG lanes a block
    at S = 4: the causes each scan names and the count-sized map, and
    SB_F64_PINGS float64 pings with budgets, card against CPU.
+16. the records kernel (``kernels/box_words``, ``csrc/box_words.cu``) at
+   the benchmark cell's batch (BOX_WORDS_FRAMES bench pings, the cell's
+   lattice caps BOX_WORDS_CAPS: N = 233,728 lanes a ping), in both its
+   forms (brick codes, which the cell's windows take, and box keys) and
+   in float32 and float64: sort words and FrameAux bit-equal to the plain
+   chain (``ops.records.sort_words_plain``), its device time a call
+   (profiler) against its bytes' bound (the rays' columns of the images,
+   the words, the tables and poses) and the plain chain's (CUDA events).
+   Its launches join the kernels line: ``launches`` the warm main-path
+   run's (phase 2 fails without one), ``launches_by_path`` phase 2's and
+   2b's warm runs and each later phase's, with what the CLI's map-bag
+   subprocesses report (the bench's subprocesses report none).
 
 The line before the last is a JSON object describing each kernel, with
 the bytes each call must move and its bound at the card's published
@@ -523,32 +535,49 @@ def count_rehashes():
         pipeline.rehash = fn
 
 
+# records-kernel launches that ``_reset_counts`` took off its count, plus
+# those the CLI's subprocesses reported (``_words_launched``)
+_WORDS_SET_ASIDE = {"n": 0}
+
+
 def _reset_counts():
     from sonar_3d_reconstruction_tpu_torch.kernels import (
         bin_apply,
+        box_words,
         lookup_accumulate,
     )
 
     bin_apply.launches = bin_apply.raw_launches = 0
     lookup_accumulate.launches = 0
+    _WORDS_SET_ASIDE["n"] += box_words.launches
+    box_words.launches = 0
+
+
+def _words_launched():
+    """Records-kernel (box_words) launches since the start, in this process
+    and in the CLI's subprocesses (``_cli``)."""
+    from sonar_3d_reconstruction_tpu_torch.kernels import box_words
+
+    return _WORDS_SET_ASIDE["n"] + box_words.launches
 
 
 def phase_build():
     from sonar_3d_reconstruction_tpu_torch.device import require_cuda
     from sonar_3d_reconstruction_tpu_torch.kernels import (
         bin_apply,
+        box_words,
         lookup_accumulate,
     )
 
     dev = require_cuda()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         logs = list(pool.map(lambda m: m.build(),
-                             (bin_apply, lookup_accumulate)))
+                             (bin_apply, lookup_accumulate, box_words)))
     ptxas = [ln.strip() for log in logs for ln in log.splitlines()
              if "ptxas info" in ln or "spill" in ln]
-    print(f"phase 1 build: bin_apply and lookup_accumulate built in "
-          f"{time.perf_counter() - t0:.1f} s"
+    print(f"phase 1 build: bin_apply, lookup_accumulate and box_words "
+          f"built in {time.perf_counter() - t0:.1f} s"
           + "".join(f"\n  {ln}" for ln in ptxas), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -560,9 +589,9 @@ def phase_build():
 
 def phase_main_path(dev, dense_mode):
     """Map the bench survey twice in ``dense_mode``; returns (the warm
-    run's K1 launches of that mode, its largest window's shape, the inputs
-    of the widest window's K1 call (kept in the cold run), the final
-    state, the per-ping stats)."""
+    run's K1 launches of that mode, its records-kernel launches, its
+    largest window's shape, the inputs of the widest window's K1 call
+    (kept in the cold run), the final state, the per-ping stats)."""
     import numpy as np
     import torch
 
@@ -571,7 +600,10 @@ def phase_main_path(dev, dense_mode):
     from sonar_3d_reconstruction_tpu_torch.grid.brick import (
         extract_occupied_brick,
     )
-    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.kernels import (
+        bin_apply,
+        box_words,
+    )
     from sonar_3d_reconstruction_tpu_torch.pipeline import map_ping_sequence
 
     raw = dense_mode == "pallas-raw"
@@ -600,10 +632,14 @@ def phase_main_path(dev, dense_mode):
     launches, other = bin_apply.launches, bin_apply.raw_launches
     if raw:
         launches, other = other, launches
+    words = box_words.launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     if launches == 0:
         raise AssertionError(f"the {dense_mode} path never launched {name}")
+    if words == 0:
+        raise AssertionError(f"the {dense_mode} path never launched the "
+                             f"records kernel (box_words)")
     if other != 0:
         raise AssertionError(f"the {dense_mode} path launched the other K1 form")
     if stats["overflowed"].any():
@@ -635,7 +671,8 @@ def phase_main_path(dev, dense_mode):
         f"{n_pings / wall:.1f} pings/s, {emissions / wall / 1e6:.2f} M "
         f"emissions/s ({emissions} emissions), {len(points)} occupied "
         f"voxels, capacity {st.capacity} bricks, peak memory "
-        f"{peak / 2**20:.1f} MiB, {name} launches {launches}; windows "
+        f"{peak / 2**20:.1f} MiB, {name} launches {launches}, box_words "
+        f"launches {words}; windows "
         f"{int(stats['batch_n_lanes'].min())}-"
         f"{int(stats['batch_n_lanes'].max())} lanes, widest NB="
         f"{int(stats['batch_n_bricks'][widest])} L="
@@ -645,7 +682,7 @@ def phase_main_path(dev, dense_mode):
     if kept.get("L") != int(stats["batch_n_lanes"].max()):
         raise AssertionError("the cold run's widest K1 call was not the "
                              "warm run's widest window")
-    return launches, shape, kept["args"], st, stats
+    return launches, words, shape, kept["args"], st, stats
 
 
 def check_raw_equals_dedup(dedup, raw):
@@ -1324,6 +1361,12 @@ def _cli(*argv):
     if proc.returncode != 0:
         raise AssertionError(f"CLI {argv[0]} exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
+    try:
+        summary = json.loads(proc.stdout.splitlines()[-1])
+    except (IndexError, ValueError):
+        summary = None
+    if isinstance(summary, dict):  # map-bag's summary
+        _WORDS_SET_ASIDE["n"] += summary.get("box_words_launches", 0)
     return proc.stdout, time.perf_counter() - t0
 
 
@@ -5188,6 +5231,102 @@ def phase_sharded_budgets(dev, smi, main_voxels, main_stats, raw_stats):
     return launches, facts
 
 
+BOX_WORDS_FRAMES = 64   # phase 16: the cell's batch (window = records_batch)
+BOX_WORDS_CAPS = dict(fan_cap=10, window_cap=40, free_cap=189)  # its plan's
+BOX_WORDS_REPS = 20     # phase 16: kernel calls a profile
+PLAIN_REPS = 5          # phase 16: plain-chain calls timed
+
+
+def box_words_bytes(images, T, tables, cfg, skey, dtype):
+    """Bytes a records-kernel call must move: the rays' columns of the
+    images read once, the (F, N) words and the (F, 3) bounds written once,
+    the poses and the fan tables read once."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        _device_tables,
+        _fan_trig,
+    )
+
+    F, R, _ = images.shape
+    tab = _device_tables(tables, images.device, dtype)
+    trig = _fan_trig(tables, images.device, dtype, cfg.half_aperture_rad)[:2]
+    size = torch.empty((), dtype=dtype).element_size()
+    return (F * R * tables.n_rays * images.element_size() + _nbytes(skey)
+            + _nbytes(T, *tab.values(), *trig) + F * (2 * 3 * size + 9))
+
+
+def phase_box_words(dev, smi):
+    """Phase 16: the records kernel at the benchmark cell's batch, against
+    the plain chain.  Returns ({path: launches}, facts)."""
+    import torch
+
+    from sonar_3d_reconstruction_tpu_torch.bench import make_inputs
+    from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+    from sonar_3d_reconstruction_tpu_torch.geometry import (
+        batched_sonar_to_world,
+    )
+    from sonar_3d_reconstruction_tpu_torch.grid.brick import DEFAULT_BRICK_BITS
+    from sonar_3d_reconstruction_tpu_torch.kernels import box_words as kw
+    from sonar_3d_reconstruction_tpu_torch.ops import records
+    from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
+        build_fan_tables,
+    )
+    from sonar_3d_reconstruction_tpu_torch.ops.packing import (
+        compute_window_boxes,
+    )
+
+    t0 = time.perf_counter()
+    cfg = MapperConfig()
+    images, positions, quats = make_inputs(cfg, BOX_WORDS_FRAMES, seed=16)
+    tables = build_fan_tables(cfg, *images.shape[1:], **BOX_WORDS_CAPS)
+    box_min, box_bits = compute_window_boxes(
+        positions, cfg.max_range, cfg.voxel_resolution, BOX_WORDS_FRAMES,
+        DEFAULT_BRICK_BITS, frame_bits=1)
+    img = torch.as_tensor(images, device=dev)
+    before = kw.launches
+    facts = {}
+    for dtype in (torch.float32, torch.float64):
+        T = torch.as_tensor(batched_sonar_to_world(positions, quats, cfg),
+                            device=dev).to(dtype)
+        for form, box in (("brick codes", None),
+                          ("box keys", torch.as_tensor(box_min[0],
+                                                       device=dev))):
+            args = (img, T, tables, cfg, box, None if box is None else
+                    box_bits, DEFAULT_BRICK_BITS, dtype)
+            skey, aux = records.sort_words(*args)
+            want, want_aux = records.sort_words_plain(*args)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("skey",) + aux._fields,
+                                  (skey,) + tuple(aux),
+                                  (want,) + tuple(want_aux)):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"phase 16: box_words {form} {dtype} {name} "
+                        f"differs from the plain chain")
+            ms = _device_ms(lambda: kw.box_words(*args), "box_words_kernel",
+                            reps=BOX_WORDS_REPS)
+            plain_ms = _time_ms(lambda: records.sort_words_plain(*args),
+                                reps=PLAIN_REPS)
+            nbytes = box_words_bytes(img, T, tables, cfg, skey, dtype)
+            facts[f"{form} {str(dtype)[6:]}"] = dict(
+                F=BOX_WORDS_FRAMES, N=skey.shape[1], ms=ms,
+                bytes=nbytes, bound_ms=_bound_ms(nbytes),
+                share_of_bound=_bound_ms(nbytes) / ms, plain_ms=plain_ms,
+                valid_lanes=int(aux.n_valid.sum()))
+            del skey, aux, want, want_aux
+    launches = kw.launches - before
+    print(f"phase 16 records kernel: box_words == plain chain at F = "
+          f"{BOX_WORDS_FRAMES}, N = "
+          f"{facts['brick codes float32']['N']:,}, both forms, float32 and "
+          f"float64; device ms a call (bound, share, plain ms): "
+          + "; ".join(f"{k} {v['ms']:.4f} ({v['bound_ms']:.4f}, "
+                      f"{v['share_of_bound']:.1%}, {v['plain_ms']:.3f})"
+                      for k, v in facts.items())
+          + f" ({time.perf_counter() - t0:.1f} s, {smi})", flush=True)
+    return {"phase 16 (the cell's batch)": launches}, facts
+
+
 def main() -> int:
     import torch
 
@@ -5201,9 +5340,21 @@ def main() -> int:
     )
 
     dev, smi = phase_build()
-    k1_launches, k1_shape, k1_real, *dedup = phase_main_path(dev, "pallas")
-    raw_launches, raw_shape, raw_real, *raw = phase_main_path(
+    # the records kernel's launches, each path's: the main paths' warm
+    # runs, then every later phase's (its subprocesses' CLI runs included)
+    words_by_path = {}
+
+    def counted(path, phase, *args):
+        before = _words_launched()
+        out = phase(*args)
+        words_by_path[path] = _words_launched() - before
+        return out
+
+    k1_launches, words_main, k1_shape, k1_real, *dedup = phase_main_path(
+        dev, "pallas")
+    raw_launches, words_raw, raw_shape, raw_real, *raw = phase_main_path(
         dev, "pallas-raw")
+    words_by_path.update({"main": words_main, "main (pallas-raw)": words_raw})
     check_raw_equals_dedup(dedup, raw)
     main_voxels = touched_voxels_brick(dedup[0])
     main_stats, raw_stats = dedup[1], raw[1]
@@ -5213,33 +5364,44 @@ def main() -> int:
     k1_raw = _k1_form(dev, raw_shape, raw_real, raw=True)
     del k1_real, raw_real
     k2 = phase_k2(dev)
-    phase_cross_check(dev)
-    entry_launches, entry = phase_entry_points(dev, smi, main_voxels)
-    stream_launches, stream = phase_stream(
+    counted("phase 4 cross-check", phase_cross_check, dev)
+    entry_launches, entry = counted(
+        "phase 5 entry points", phase_entry_points, dev, smi, main_voxels)
+    stream_launches, stream = counted(
+        "phase 6 stream, CLI and node", phase_stream,
         dev, smi, main_voxels, entry["process_sonar_image_ms"],
         entry["cli_map_bag"]["num_voxels"])
     (wide_launches, hash_wide, hash_voxels, wide_voxels,
-     hash_runs) = phase_hash_and_wide(
+     hash_runs) = counted(
+        "phase 7 hash and wide keys", phase_hash_and_wide,
         dev, smi, main_voxels, main_stats, entry["cli_map_bag"]["num_voxels"])
-    late_launches, dense_fold = phase_dense_and_multihost(
+    late_launches, dense_fold = counted(
+        "phase 8 dense and multi-host fold", phase_dense_and_multihost,
         dev, smi, main_voxels, main_stats, hash_voxels)
-    sharded_launches, sharded = phase_sharded(
-        dev, smi, main_voxels, main_stats, wide_voxels,
-        entry["cli_map_bag"]["num_voxels"])
+    sharded_launches, sharded = counted(
+        "phase 9 sharded", phase_sharded, dev, smi, main_voxels, main_stats,
+        wide_voxels, entry["cli_map_bag"]["num_voxels"])
     del wide_voxels
-    replicated_launches, replicated = phase_replicated(
-        dev, smi, main_voxels, main_stats, hash_voxels, hash_runs)
+    replicated_launches, replicated = counted(
+        "phase 10 replicated", phase_replicated, dev, smi, main_voxels,
+        main_stats, hash_voxels, hash_runs)
     del hash_voxels, hash_runs
-    raw_sharded_launches, late_checks = phase_owner_blocks_raw_poses(
+    raw_sharded_launches, late_checks = counted(
+        "phase 11 owner blocks, raw, poses", phase_owner_blocks_raw_poses,
         dev, smi, main_voxels, main_stats)
-    batch_launches, batched = phase_records_batch(
+    batch_launches, batched = counted(
+        "phase 12 records_batch", phase_records_batch,
         dev, smi, main_np, main_stats, raw_stats)
-    golden_launches, golden = phase_golden(dev, smi)
-    budget_launches, budgets = phase_budgets(
-        dev, smi, main_voxels, main_stats, raw_stats,
-        entry["cli_map_bag"]["num_voxels"])
-    shard_budget_launches, shard_budgets = phase_sharded_budgets(
+    golden_launches, golden = counted(
+        "phase 13 golden", phase_golden, dev, smi)
+    budget_launches, budgets = counted(
+        "phase 14 budgets", phase_budgets, dev, smi, main_voxels, main_stats,
+        raw_stats, entry["cli_map_bag"]["num_voxels"])
+    shard_budget_launches, shard_budgets = counted(
+        "phase 15 sharded budgets", phase_sharded_budgets,
         dev, smi, main_voxels, main_stats, raw_stats)
+    words_phase, words = phase_box_words(dev, smi)
+    words_by_path.update(words_phase)
 
     bin_src = "sonar_3d_reconstruction_tpu_torch/csrc/bin_apply.cu"
     bin_tpu = "sonar_3d_reconstruction_tpu/pallas/bin_kernel.py:61"
@@ -5274,6 +5436,9 @@ def main() -> int:
         ("lookup_accumulate",
          "sonar_3d_reconstruction_tpu_torch/csrc/lookup_accumulate.cu",
          "sonar_3d_reconstruction_tpu/pallas/table_kernel.py:51", 0, {}, k2),
+        # launches: the warm main-path run's; by_path: each path's
+        ("box_words", "sonar_3d_reconstruction_tpu_torch/csrc/box_words.cu",
+         None, words_main, words_by_path, words),
     ]
     print(json.dumps({"kernels": [dict(
         name=name,

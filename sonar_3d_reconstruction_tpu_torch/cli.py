@@ -21,14 +21,14 @@
       publish sink at the config's publish_rate_hz (stream time).  Prints
       one JSON line: the stream's summary (counters, latency p50/p95/max),
       wall time, pings/s, the publish counts, the map's voxels, the device
-      and the binning kernel's launches.
+      and the binning and records kernels' launches.
 
   python -m sonar_3d_reconstruction_tpu_torch map-bag BAG --offline [...]
       Decode and pair the whole bag, then map it in windows of W pings
       (pipeline.map_ping_sequence, or the frame-parallel engine for
       brick-sharded); prints one JSON line (pairs, voxels, load and map
-      seconds, pings/s, realtime factor, the device and the binning
-      kernel's launches).
+      seconds, pings/s, realtime factor, the device and the binning and
+      records kernels' launches).
 
   python -m sonar_3d_reconstruction_tpu_torch tune BAG [--out PLAN.json]
       [--config YAML] [--param K=V] [--backend brick|hash] [--window W]
@@ -192,7 +192,10 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
         args.chunk = max(args.chunk, int(plan["window"]))
     import torch
 
-    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.kernels import (
+        bin_apply,
+        box_words,
+    )
     from sonar_3d_reconstruction_tpu_torch.stream import StreamingMapper
 
     published = {"n": 0, "points": 0, "bytes": 0}
@@ -209,7 +212,7 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
         dtype=torch.float32, publish=pub_cb, backend=args.backend,
         device=device, mesh=mesh, budgets=plan,
     )
-    k1_before = bin_apply.launches
+    k1_before, words_before = bin_apply.launches, box_words.launches
     t0 = time.perf_counter()
     stats = mapper.run_bag(args.bag)
     wall = time.perf_counter() - t0
@@ -224,9 +227,10 @@ def cmd_map_bag(args: argparse.Namespace) -> int:
     s["device"] = str(device)
     if mesh is not None:
         s["shards"] = len(mesh)
-    # the binning kernel's launches (0 on the CPU, which runs its plain
-    # version)
+    # the binning and records kernels' launches (0 on the CPU, which runs
+    # their plain versions)
     s["bin_apply_launches"] = bin_apply.launches - k1_before
+    s["box_words_launches"] = box_words.launches - words_before
     print(json.dumps(s))
     if args.save_map:
         from sonar_3d_reconstruction_tpu_torch.io.checkpoint import save_map
@@ -245,7 +249,10 @@ def _map_bag_offline(args, device, cfg, stream_cfg, plan=None) -> int:
     import torch
 
     from sonar_3d_reconstruction_tpu_torch.io.bag import load_bag_sequence
-    from sonar_3d_reconstruction_tpu_torch.kernels import bin_apply
+    from sonar_3d_reconstruction_tpu_torch.kernels import (
+        bin_apply,
+        box_words,
+    )
     from sonar_3d_reconstruction_tpu_torch.parallel.shard_frames import (
         map_ping_sequence_sharded_frames,
     )
@@ -261,7 +268,7 @@ def _map_bag_offline(args, device, cfg, stream_cfg, plan=None) -> int:
     t_load = time.perf_counter() - t0
     mesh = _mesh(args, device) if args.backend == "brick-sharded" else None
     t0 = time.perf_counter()
-    k1_before = bin_apply.launches
+    k1_before, words_before = bin_apply.launches, box_words.launches
     if mesh is not None:
         state, _ = map_ping_sequence_sharded_frames(
             images, positions, quats, cfg, mesh=mesh, dtype=torch.float32,
@@ -289,9 +296,10 @@ def _map_bag_offline(args, device, cfg, stream_cfg, plan=None) -> int:
                 "pings_per_sec": n / t_map if t_map else 0.0,
                 "realtime_factor": span / t_map if t_map else 0.0,
                 "device": str(device),
-                # the binning kernel's launches (0 on the CPU, which runs
-                # its plain version)
+                # the binning and records kernels' launches (0 on the
+                # CPU, which runs their plain versions)
                 "bin_apply_launches": bin_apply.launches - k1_before,
+                "box_words_launches": box_words.launches - words_before,
             }
         )
     )

@@ -138,15 +138,22 @@ def _segment_ends(vox: torch.Tensor) -> torch.Tensor:
     return torch.cat([differs, _first_lane(differs, True)], dim=-1)
 
 
-def _dedup_codes(code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor,
-                 unique_budget: Optional[int], lane_budget: int):
-    """The two-word dedup on (..., N) 60-bit codes, row by row: (record
-    codes in ascending order, count, n_occ, record lanes, n_unique, the
-    sort's lane permutation, each record's segment-end lane in sorted
-    order), each of width N (unused lanes after the records hold garbage
-    the caller masks with the record lanes).  ``perm[end]`` is each
-    record's input lane."""
-    skey = torch.where(valid, (code << 1) | occ.to(torch.int64), EMPTY64)
+def code_sort_words(
+    code: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    """The two-word dedup's (..., N) sort words: ``code << 1 | occ`` (61
+    bits) on valid lanes, ``EMPTY64`` (which sorts last) on the others."""
+    return torch.where(valid, (code << 1) | occ.to(torch.int64), EMPTY64)
+
+
+def _dedup_codes(skey: torch.Tensor, unique_budget: Optional[int],
+                 lane_budget: int):
+    """The two-word dedup on (..., N) sort words (``code_sort_words``), row
+    by row: (record codes in ascending order, count, n_occ, record lanes,
+    n_unique, the sort's lane permutation, each record's segment-end lane
+    in sorted order), each of width N (unused lanes after the records hold
+    garbage the caller masks with the record lanes).  ``perm[end]`` is
+    each record's input lane."""
     skey, perm = torch.sort(skey, dim=-1)
 
     vox = skey >> 1
@@ -214,8 +221,22 @@ def dedup_frame(
     groups each voxel's candidates; a second compacts the segment ends, in
     key order, whose lane indices and occupied cumsums give each record's
     count and n_occ as adjacent differences."""
+    return dedup_code_words(
+        code_sort_words(key_code(hi, lo, brick), occ, valid), brick,
+        unique_budget, lane_budget)
+
+
+def dedup_code_words(
+    skey: torch.Tensor,
+    brick: bool,
+    unique_budget: Optional[int] = None,
+    lane_budget: int = 0,
+) -> UniqueRecords:
+    """``dedup_frame`` from its (..., N) sort words (``code_sort_words``,
+    or the same words from the records kernel, kernels/box_words.py), row
+    by row."""
     c_vox, count, n_occ, valid_u, n_unique, _, _ = _dedup_codes(
-        key_code(hi, lo, brick), occ, valid, unique_budget, lane_budget)
+        skey, unique_budget, lane_budget)
     return _unique_records(c_vox, count, n_occ, valid_u, n_unique, brick,
                            unique_budget)
 
@@ -241,7 +262,8 @@ def dedup_frame_grouped(
     record groups then moves whole records, so (group, key) order costs
     no change to the count arithmetic."""
     c_vox, count, n_occ, valid_u, n_unique, perm, end = _dedup_codes(
-        key_code(hi, lo, brick), occ, valid, unique_budget, lane_budget)
+        code_sort_words(key_code(hi, lo, brick), occ, valid), unique_budget,
+        lane_budget)
     rec_group = torch.where(valid_u, group.to(torch.int64)[perm[end]],
                             n_groups)
     rec_group, order = torch.sort(rec_group, stable=True)
@@ -293,15 +315,34 @@ def dedup_frame_compact(
     gives each frame's records, ``n_unique`` and ``pack_fail`` bit for bit
     as its (N,) row alone (the residue arithmetic and the pack_fail
     distance test stay inside a row)."""
-    n = key.shape[-1]
-    skey = torch.where(valid, (key << 1) | occ.to(torch.int64), EMPTY32)
+    return dedup_compact_words(compact_sort_words(key, occ, valid),
+                               unique_budget, lane_budget)
+
+
+def compact_sort_words(
+    key: torch.Tensor, occ: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    """The compact dedup's (..., N) sort words: ``key << 1 | occ`` on valid
+    lanes, ``EMPTY32`` (which sorts last) on the others."""
+    return torch.where(valid, (key << 1) | occ.to(torch.int64), EMPTY32)
+
+
+def dedup_compact_words(
+    skey: torch.Tensor,
+    unique_budget: Optional[int] = None,
+    lane_budget: int = 0,
+) -> CompactRecords:
+    """``dedup_frame_compact`` from its (..., N) sort words
+    (``compact_sort_words``, or the same words from the records kernel,
+    kernels/box_words.py), row by row."""
+    n = skey.shape[-1]
     skey = torch.sort(skey, dim=-1).values
 
     vox = skey >> 1
     # invalid lanes sort past every record, so their sentinel's low bit
     # only reaches cumsum lanes beyond the last record
     csum_occ = torch.cumsum(skey & 1, dim=-1)
-    lane = torch.arange(n, device=key.device)
+    lane = torch.arange(n, device=skey.device)
     track = ((lane & 0xFFFF) << 16) | (csum_occ & 0xFFFF)
 
     seg_valid = skey != EMPTY32
@@ -317,8 +358,8 @@ def dedup_frame_compact(
             (vox[..., 0xFFFF:] == vox[..., :-0xFFFF]) & seg_valid[..., 0xFFFF:]
         ).any(dim=-1)
     else:
-        pack_fail = torch.zeros(key.shape[:-1], dtype=torch.bool,
-                                device=key.device)
+        pack_fail = torch.zeros(skey.shape[:-1], dtype=torch.bool,
+                                device=skey.device)
 
     # records are distinct voxels, so the unstable sort fixes their order;
     # the EMPTY32 tail is masked below

@@ -5,6 +5,11 @@ A frame's contribution to the map is its unique-voxel records plus a few
 reductions (bounds, range check).  They need only the ping and its pose,
 not the map, so the sequential dependency of the adaptive update lives
 entirely in the window apply.
+
+Box keys and brick codes reach their dedup as sort words (``sort_words``):
+on the card one kernel emits them straight from the pings and poses
+(kernels/box_words.py), elsewhere the PyTorch chain does
+(``sort_words_plain``, the kernel's plain version).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import List, NamedTuple, Optional, Tuple, Union
 import torch
 
 from sonar_3d_reconstruction_tpu_torch.config import MapperConfig
+from sonar_3d_reconstruction_tpu_torch.kernels import box_words as k_words
 from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
     FanTables,
     backproject_ping,
@@ -21,11 +27,15 @@ from sonar_3d_reconstruction_tpu_torch.ops.backproject import (
 from sonar_3d_reconstruction_tpu_torch.ops.dedup import (
     CompactRecords,
     UniqueRecords,
+    code_sort_words,
+    compact_sort_words,
+    dedup_code_words,
+    dedup_compact_words,
     dedup_frame,
-    dedup_frame_compact,
 )
 from sonar_3d_reconstruction_tpu_torch.ops.packing import (
     EMPTY32,
+    key_code,
     pack_box_keys,
     pack_brick_keys,
     pack_keys,
@@ -87,40 +97,102 @@ def frame_records(
     """
     if raw and box_min is None:
         raise ValueError("raw records need box keys")
-    cand = backproject_ping(image, T_sonar_to_world, tables, cfg, dtype=dtype)
-    device = image.device
-    res = torch.full((), cfg.voxel_resolution, dtype=dtype, device=device)
+    budget = dict(unique_budget=unique_budget, lane_budget=dedup_lane_budget)
+    if box_min is None and not brick_bits:
+        occ, (hi, lo), valid, aux = _packed_candidates(
+            image, T_sonar_to_world, tables, cfg, dtype, frame_on, pack_keys)
+        return dedup_frame(hi, lo, occ, valid, False, **budget), aux
 
+    skey, aux = sort_words(image, T_sonar_to_world, tables, cfg, box_min,
+                           box_bits, brick_bits, dtype, frame_on)
+    if box_min is None:
+        return dedup_code_words(skey, True, **budget), aux
+    if not raw:
+        return dedup_compact_words(skey, **budget), aux
+    valid = skey != EMPTY32
+    return CompactRecords(
+        key=torch.where(valid, skey >> 1, EMPTY32),
+        payload=torch.where(valid, (1 << 16) | (skey & 1), 0),
+        n_unique=aux.n_valid,
+        pack_fail=torch.zeros(valid.shape[:-1], dtype=torch.bool,
+                              device=valid.device),
+    ), aux
+
+
+def _packed_candidates(image, T_sonar_to_world, tables, cfg, dtype,
+                       frame_on, pack):
+    """The candidates of ``frame_records``' ping or batch with their voxel
+    keys packed by ``pack`` (int voxel keys -> (*words, in_range)):
+    (occupied flags, words, valid (in-range, frame on) mask, FrameAux)."""
+    cand = backproject_ping(image, T_sonar_to_world, tables, cfg, dtype=dtype)
+    res = torch.full((), cfg.voxel_resolution, dtype=dtype,
+                     device=image.device)
     # a true division, as in the reference's floor(p / res) keying
     keys = torch.floor(cand["points"] / res).to(torch.int32)
-    if box_min is not None:
-        bkey, in_range = pack_box_keys(keys, box_min, box_bits, brick_bits)
-    elif brick_bits:
-        hi, lo, in_range = pack_brick_keys(keys, brick_bits)
-    else:
-        hi, lo, in_range = pack_keys(keys)
+    *words, in_range = pack(keys)
     valid = cand["valid"]
     if frame_on is not None:
-        valid = valid & torch.as_tensor(frame_on, device=device)[..., None]
+        on = torch.as_tensor(frame_on, device=image.device)
+        valid = valid & on[..., None]
     range_fail = (valid & ~in_range).any(dim=-1)
     valid = valid & in_range
-    budget = dict(unique_budget=unique_budget, lane_budget=dedup_lane_budget)
-    if box_min is None:
-        rec = dedup_frame(hi, lo, cand["is_occupied"], valid, brick_bits > 0,
-                          **budget)
-    elif raw:
-        occ = cand["is_occupied"].to(torch.int64)
-        rec = CompactRecords(
-            key=torch.where(valid, bkey, EMPTY32),
-            payload=torch.where(valid, (1 << 16) | occ, 0),
-            n_unique=valid.sum(dim=-1),
-            pack_fail=torch.zeros(valid.shape[:-1], dtype=torch.bool,
-                                  device=device),
-        )
-    else:
-        rec = dedup_frame_compact(bkey, cand["is_occupied"], valid, **budget)
+    return (cand["is_occupied"], words, valid,
+            frame_aux(keys, valid, range_fail, res))
 
-    return rec, frame_aux(keys, valid, range_fail, res)
+
+def sort_words_plain(
+    image: torch.Tensor,
+    T_sonar_to_world: torch.Tensor,
+    tables: FanTables,
+    cfg: MapperConfig,
+    box_min: Optional[torch.Tensor],
+    box_bits: Optional[Tuple[int, int, int]],
+    brick_bits: int,
+    dtype: torch.dtype,
+    frame_on: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, FrameAux]:
+    """A ping's (or a batch's) dedup sort words and FrameAux, by PyTorch
+    ops: backprojection, floor keying, then with a box ``pack_box_keys``
+    (``ops.dedup.compact_sort_words``), without one ``pack_brick_keys``
+    (``ops.dedup.code_sort_words`` of the brick codes; ``brick_bits`` > 0).
+    The plain version of the records kernel (kernels/box_words.py)."""
+    if box_min is None:
+        occ, (hi, lo), valid, aux = _packed_candidates(
+            image, T_sonar_to_world, tables, cfg, dtype, frame_on,
+            lambda keys: pack_brick_keys(keys, brick_bits))
+        return code_sort_words(key_code(hi, lo, True), occ, valid), aux
+    occ, (bkey,), valid, aux = _packed_candidates(
+        image, T_sonar_to_world, tables, cfg, dtype, frame_on,
+        lambda keys: pack_box_keys(keys, box_min, box_bits, brick_bits))
+    return compact_sort_words(bkey, occ, valid), aux
+
+
+def sort_words(
+    image: torch.Tensor,
+    T_sonar_to_world: torch.Tensor,
+    tables: FanTables,
+    cfg: MapperConfig,
+    box_min: Optional[torch.Tensor],
+    box_bits: Optional[Tuple[int, int, int]],
+    brick_bits: int,
+    dtype: torch.dtype,
+    frame_on: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, FrameAux]:
+    """``sort_words_plain``'s result, bit for bit: from the records kernel
+    (``kernels.box_words``, float32 or float64) where the ping is on a
+    CUDA device, else from the plain version."""
+    if not image.is_cuda:
+        return sort_words_plain(image, T_sonar_to_world, tables, cfg,
+                                box_min, box_bits, brick_bits, dtype,
+                                frame_on)
+    batched = image.dim() == 3
+    out = k_words.box_words(
+        image if batched else image[None],
+        T_sonar_to_world.reshape(-1, 4, 4), tables, cfg, box_min, box_bits,
+        brick_bits, dtype, frame_on)
+    skey, cmin, cmax, range_fail, n_valid = (
+        out if batched else (x[0] for x in out))
+    return skey, FrameAux(cmin, cmax, range_fail, n_valid)
 
 
 def frame_records_batch(

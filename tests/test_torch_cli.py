@@ -63,6 +63,7 @@ def test_offline_map_and_query_match_jax_cli(tmp_path, capsys, ext):
     assert got["pairs"] == want["pairs"] == 6
     assert got["num_voxels"] == want["num_voxels"] > 0
     assert got["device"] == "cpu" and got["bin_apply_launches"] == 0
+    assert got["box_words_launches"] == 0
     pts, probs = cloud(t_cloud)
     j_pts, j_probs = cloud(j_cloud)
     assert len(pts) > 0
@@ -109,6 +110,7 @@ def test_streaming_map_bag_matches_jax_cli(tmp_path, capsys):
         assert got[k] == want[k], k
     assert (got["pairs"], got["chunks"]) == (7, 3) and got["publishes"] > 1
     assert got["device"] == "cpu" and got["bin_apply_launches"] == 0
+    assert got["box_words_launches"] == 0
     pts, probs = cloud(t_cloud)
     j_pts, j_probs = cloud(j_cloud)
     assert len(pts) >= got["last_publish_points"] > 0
